@@ -11,7 +11,7 @@
 // parity renderer) — validated in tests/test_native.py.
 //
 // Fast mode replaces the sequential xorshift32 stream with the same
-// per-(pixel, sample, site) pcg3d counters as the TPU wavefront path and
+// per-(pixel, sample, site) pcg3d counters as the JAX wavefront path and
 // parallelizes over rows with std::thread.
 //
 // Build: see native/Makefile.  MUST be compiled without -ffast-math and
@@ -588,7 +588,7 @@ void render_parity(const World &w, RtFramebuffer &fb, int spp, int depth,
 
 void render_fast(const World &w, RtFramebuffer &fb, int spp, int depth,
                  uint32_t seed, int num_threads) {
-  // counter-based streams (pcg3d, matching the TPU wavefront path),
+  // counter-based streams (pcg3d, matching the JAX wavefront path),
   // thread-parallel over rows
   size_t width = fb.width, height = fb.height;
   uint32_t seed_word = seed * 0x85EBCA6Bu;

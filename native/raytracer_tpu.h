@@ -9,9 +9,10 @@
  *
  * The native engine renders on the host CPU with the exact reference
  * algorithm (single xorshift32 stream, seed 2547549) in parity mode, or a
- * thread-parallel counter-based mode ("fast") matching the TPU path's
- * sampling scheme.  The TPU compute path itself lives in the Python/JAX
- * layer; this library is the embedding runtime for C/C++/Swift hosts.
+ * thread-parallel counter-based mode ("fast") matching the JAX path's
+ * sampling scheme.  The accelerated compute path itself lives in the
+ * Python/JAX layer; this library is the embedding runtime for C/C++/Swift
+ * hosts.
  */
 
 #ifndef RAYTRACER_TPU_H

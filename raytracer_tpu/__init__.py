@@ -1,13 +1,13 @@
-"""raytracer_tpu — a TPU-native differentiable ray tracer built from scratch
+"""raytracer_tpu — a differentiable path tracer built from scratch
 in JAX/XLA/Pallas with the capabilities of the reference Rust+Swift raytracer
 (Naxaes/Rust-Swift-Raytracer; survey in /root/repo/SURVEY.md).
 
-Layer map (mirrors SURVEY.md §1, redesigned TPU-first):
+Layer map (mirrors SURVEY.md §1, redesigned for wide data-parallel devices):
   L1  maths / mat3 / rng / image   — array math, counter-based + parity RNG
   L2  scene / materials / camera / parser — SoA pytrees, branchless dispatch
   L3  intersect / render           — wavefront lax.scan path tracer
   L4  cli / api                    — CLI driver and embedding (render-service) API
-  L5  parallel                     — mesh/sharding (multi-chip)
+  L5  parallel                     — mesh/sharding (multi-device)
   aux grad / models / oracle       — inverse rendering, scene zoo, golden oracle
 """
 

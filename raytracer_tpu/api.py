@@ -8,7 +8,7 @@ talks to in the reference; here it is the layer any Python host (or the C ABI
 shim in native/) talks to.
 
 Because the camera and scene are traced pytree arguments of the jitted
-renderer, a camera move re-renders WITHOUT recompilation — the TPU-native
+renderer, a camera move re-renders WITHOUT recompilation — the array-program
 answer to the reference's per-keypress synchronous re-render
 (GameView.swift:198-219).
 """
@@ -76,7 +76,7 @@ def move_camera_position(handle: WorldHandle, x: float, y: float, z: float
 
 
 class RenderSession:
-    """Interactive render loop helper: the TPU-native equivalent of the
+    """Interactive render loop helper: the equivalent of the
     Swift GUI's keypress -> move_camera_position -> render cycle
     (GameView.swift:198-219, 323-334).
 
@@ -122,16 +122,15 @@ class RenderSession:
                    handle=WorldHandle(scene=scene, camera=camera,
                                       parsed=None))
 
-    def resolved_engine(self, tpu: bool | None = None) -> str:
+    def resolved_engine(self, gpu: bool | None = None) -> str:
         """The engine auto-dispatch picks for this session's renders
-        (ops.resolve_dispatch over the live scene + per-batch spp) —
-        surfaced so frontends/tests can confirm an OBJ-scale scene rides
-        the binned per-bounce engine rather than silently falling back."""
+        (ops.resolve_dispatch over the live scene) — surfaced so
+        frontends/tests can confirm a mesh scene rides the fused kernel on
+        the GPU rather than silently falling back."""
         from . import ops as ops_mod
         engine, _, _ = ops_mod.resolve_dispatch(
             self.handle.scene, self.options.parity_plane_sign,
-            self.options.engine, tpu=tpu,
-            samples_per_pixel=self.options.samples_per_pixel)
+            self.options.engine, gpu=gpu)
         return engine
 
     @property

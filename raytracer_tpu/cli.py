@@ -1,4 +1,4 @@
-"""CLI driver — the reference binary's entry point, TPU-native.
+"""CLI driver — the reference binary's entry point.
 
 Mirrors ``/root/reference/raytracer/src/main.rs``:
   * args ``samples=N`` / ``ray_depth=N`` parsed with the same combinator
@@ -149,4 +149,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     raise SystemExit(main())

@@ -45,30 +45,25 @@ def make_loss_fn(scene: Scene, camera: Camera, target_linear, *,
     """loss(params) -> scalar.  With ``mesh``, rendering (and therefore the
     backward pass, including the automatic gradient psum) is sharded.
 
-    engine "pallas" (or "auto" on TPU when the scene fits) runs the render
-    through the fused megakernel via its custom VJP
-    (ops/diff.render_linear_diff): kernel forward, and the hand-derived
-    kernel backward when the scene is eligible (else XLA recompute).
-    With ``mesh`` the same custom-VJP path runs under shard_map
-    (render_linear_diff_sharded) — kernel-speed forward AND backward per
-    device with automatic gradient psum.
+    engine "pallas" renders through the fused kernel via its custom VJP
+    (ops/diff.render_linear_diff): kernel forward, XLA recompute backward;
+    with ``mesh`` the same path runs per device under shard_map
+    (render_linear_diff_sharded).  engine "xla" is plain AD through the
+    wavefront renderer.
+
+    engine "auto" resolves to plain AD: the kernel has no backward of its
+    own, its VJP recomputes the forward on XLA, so a gradient through it
+    costs at least what plain AD costs (on the H100 it measured equal or
+    slower, and compiled twice as long; PERF.md).
     """
     from ..ops import diff as diff_mod
     if engine == "auto":
+        engine = "xla"
+    elif engine == "pallas":
         from .. import ops as ops_mod
-        # scenes past the SMEM budget still ride the kernels via the
-        # HBM-streamed differentiable triangle layout (corrected plane
-        # equation only — the 164k config gets a gradient path)
-        engine = ("pallas" if ops_mod.can_use_pallas(scene)
-                  or (ops_mod.backend_is_tpu()
-                      and diff_mod.bwd_kernel_eligible(
-                          scene, parity_plane_sign))
-                  else "xla")
-
-    bwd_engine = ("pallas" if engine == "pallas"
-                  and diff_mod.bwd_kernel_eligible(scene, parity_plane_sign)
-                  else "xla")
-    # static cluster topology for the kernel fwd/bwd (bounds recomputed
+        ops_mod.resolve_dispatch(scene, parity_plane_sign, engine,
+                                 interpret=interpret)
+    # static cluster topology for the kernel forward (bounds recomputed
     # traceably from live vertices every call — sound under optimization);
     # only valid with the corrected plane equation
     tri_cull = (diff_mod.build_tri_cull(scene)
@@ -82,13 +77,13 @@ def make_loss_fn(scene: Scene, camera: Camera, target_linear, *,
                 s, camera, mesh=mesh, width=width, height=height,
                 samples_per_pixel=samples_per_pixel, depth=depth,
                 seed=seed, parity_plane_sign=parity_plane_sign,
-                interpret=interpret, bwd_engine=bwd_engine,
-                tri_cull=tri_cull)
+                interpret=interpret, tri_cull=tri_cull)
         elif mesh is None and engine == "pallas":
-            img = diff_mod.render_linear_diff(
-                s, camera, (width, height, samples_per_pixel, depth, seed,
-                            parity_plane_sign, interpret, bwd_engine,
-                            None, tri_cull))
+            img = diff_mod.render_linear_diff(s, camera, diff_mod.make_statics(
+                width=width, height=height,
+                samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
+                parity_plane_sign=parity_plane_sign, interpret=interpret,
+                tri_cull=tri_cull))
         elif mesh is None:
             img, _ = render_mod.render_linear(
                 s, camera, width=width, height=height,
@@ -161,6 +156,7 @@ def fit(scene: Scene, camera: Camera, target_linear, params_init,
         checkpoint_path: Optional[str] = None, checkpoint_every: int = 50,
         resume: bool = True, log_every: int = 0) -> FitResult:
     """Adam descent on the pixel loss, with optional npz checkpoint/resume.
+    The renderer is ``make_loss_fn``'s ``engine="auto"`` choice.
 
     ``silhouette=True`` adds the visibility-boundary gradient terms
     (grad/silhouette.py) so geometry can be pulled across its own
@@ -180,7 +176,7 @@ def fit(scene: Scene, camera: Camera, target_linear, params_init,
         loss_fn = make_loss_fn(
             scene, camera, target_linear, width=width, height=height,
             samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
-            mesh=mesh)
+            mesh=mesh, engine="auto")
         step_fn = make_train_step(loss_fn, optimizer)
 
     params = params_init

@@ -9,7 +9,7 @@ alone does not (VERDICT r1 item 4 / r2 item 3).
 
 This module adds the boundary term with the edge-sampling estimator of
 differentiable rasterization/ray tracing (Li et al. 2018), specialized to
-PRIMARY sphere silhouettes where everything is analytic on TPU:
+PRIMARY sphere silhouettes where everything is analytic:
 
   * the silhouette of sphere (c, r) seen from the camera origin o is the
     circle  p(phi) = c - (r^2/d) w_hat + r cos(alpha) (e1 cos phi +

@@ -16,8 +16,7 @@ Two formulations are provided:
 * ``*_batch`` — the fast wavefront path.  Triangle edge tests use the scalar
   triple-product identity ``n . (e x (p - v)) == (p - v) . (n x e)`` so every
   per-(ray, primitive) quantity is a rank-2 [B, P] array built from [B, 3] x
-  [3, P] contractions (MXU-shaped, K=3) — no [B, P, 3] intermediates ever hit
-  HBM.
+  [3, P] contractions (K=3) — no [B, P, 3] intermediates are materialized.
 
 * ``*_exact`` — per-ray ops in the reference's exact arithmetic order (cross
   products materialized), used by the sequential parity renderer for
@@ -44,13 +43,13 @@ T_MIN = jnp.float32(0.001)  # shadow-acne epsilon, common.rs:242,250
 
 def contract3(a, b_t):
     """[B, 3] x [3, P] -> [B, P] contraction as three explicit broadcast
-    FMAs on the VPU.
+    multiply-adds.
 
-    NOT a jnp.dot on purpose: TPU matmuls default to bfloat16 passes, and a
-    K=3 geometric contraction at bf16 loses ~3 decimal digits — enough to
-    shift intersection t by 1e-3 and visibly corrupt the image (observed on
-    hardware).  Three f32 FMAs are exact, fuse with their consumers, and for
-    K=3 are no slower than the MXU path.
+    NOT a jnp.dot on purpose: a float32 dot on the GPU may run in TF32 by
+    default, which keeps ~3 decimal digits — enough to shift intersection t
+    by 1e-3 and visibly corrupt the image.  Three f32 multiply-adds keep full
+    precision, fuse with their consumers, and for K=3 cost no more than a
+    matrix unit would.
     """
     return (a[:, 0:1] * b_t[0][None, :]
             + a[:, 1:2] * b_t[1][None, :]
@@ -195,10 +194,8 @@ def closest_hit_batch_argmin(origin, direction, scene: Scene, pack: ScenePack,
     """World::hit via broadcast [B, S] + argmin + gather.
 
     Kept as the reference formulation for testing; ``closest_hit_batch``
-    (the scan-with-select version below) is the production path — the
-    [B, S] layout puts the primitive count in the minor dimension, which the
-    TPU pads to 128 lanes (16x waste at S=8), and the post-argmin gathers
-    are slow on the VPU.
+    (the scan-with-select version below) is the production path: it needs
+    no post-argmin gathers.
     """
     ts, si = sphere_hits_batch(origin, direction, scene, pack, t_min)
     tt, ti = triangle_hits_batch(origin, direction, scene, pack, t_min,
@@ -230,8 +227,8 @@ def closest_hit_batch(origin, direction, scene: Scene, pack: ScenePack,
 
     Walks primitives with a lax.scan whose carry is [B]-shaped planes
     (running best t + the winning primitive's attributes selected in place)
-    — every array keeps the ray batch in the minor dimension (perfect VPU
-    tiling) and no gathers are emitted.  Mirrors the Pallas kernel's loop
+    — every array keeps the ray batch in the minor dimension and no
+    gathers are emitted.  Mirrors the Pallas kernel's loop
     structure; same semantics as the argmin version: spheres first-of-equals
     wins (strict <), triangles beat spheres at equal t (<=), later triangle
     beats earlier at exactly-equal t (measure-zero deviation from the

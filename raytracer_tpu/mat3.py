@@ -1,6 +1,6 @@
 """3x3 matrix ops on ``[..., 3, 3]`` arrays (row-major, rows = last-but-one axis).
 
-TPU-native equivalent of the reference's scalar ``Mat3``
+Batched equivalent of the reference's scalar ``Mat3``
 (``/root/reference/raytracer/src/mat3.rs:7-131``): mul, transpose, determinant,
 cofactor, adjugate, and Cramer-rule inverse, all batched over leading axes.
 

@@ -2,10 +2,10 @@
 
 The reference dispatches per-ray through a 4-way enum match
 (``/root/reference/raytracer/src/materials.rs:30-40`` — the winner of its own
-dynamic-vs-enum dispatch benchmark, benches/dynamic_vs_enum_dispatch).  On TPU
-the idiomatic equivalent is to evaluate all four scatter rules on the whole
-batch and select with masks: the VPU is wide, the rules are a handful of
-fused elementwise ops each, and select is free compared to divergence.
+dynamic-vs-enum dispatch benchmark, benches/dynamic_vs_enum_dispatch).  In an
+array program the idiomatic equivalent is to evaluate all four scatter rules
+on the whole batch and select with masks: the rules are a handful of fused
+elementwise ops each, and select is cheap compared to divergence.
 
 Scatter semantics preserved exactly (see each function):
   * diffuse  — normal + random_unit_sphere, degenerate catch (materials.rs:42-52)

@@ -1,11 +1,11 @@
 """Vectorized 3-vector math on ``[..., 3]`` JAX arrays.
 
-TPU-native re-design of the reference's scalar vector library
+Array re-design of the reference's scalar vector library
 (``/root/reference/raytracer/src/maths.rs``): instead of a ``Vec3`` struct with
 operator overloads (maths.rs:60-95) and a type-state ``NVec3`` "normalized"
 wrapper (maths.rs:98-138), everything here operates on arrays whose last axis
-has length 3, so a whole wavefront of rays is one array and every op maps onto
-the VPU / MXU.
+has length 3, so a whole wavefront of rays is one array and every op is a
+fused elementwise kernel.
 
 Semantics preserved from the reference (needed for allclose parity):
   * ``reflect(v, n) = v - 2 (v.n) n``                     (maths.rs:26-28)

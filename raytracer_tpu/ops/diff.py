@@ -1,8 +1,8 @@
-"""Differentiable fast path: Pallas forward, custom VJP backward.
+"""Differentiable fast path: kernel forward, custom VJP backward.
 
-The fused megakernel (ops/pallas/wavefront.py) is forward-only — Pallas
+The fused kernel (ops/pallas/wavefront.py) is forward-only — Pallas
 kernels have no automatic transpose.  This module gives the renderer a
-``jax.custom_vjp`` so inverse rendering can ride the kernel:
+``jax.custom_vjp``:
 
   * **forward** — the scene tables are packed with *traceable* jnp ops (so
     scene parameters stay live under ``jit``/``grad``) and rendered by the
@@ -13,19 +13,15 @@ kernels have no automatic transpose.  This module gives the renderer a
     (common.rs:263-285 bounce rules with the same pcg3d RNG streams), so the
     Jacobian is the same up to float rounding.
 
-This is the recompute-backward stepping stone: the forward pass (and any
-pure-forward rendering inside an optimization loop, e.g. line searches or
-preview frames) runs at kernel speed, while gradient math stays on XLA.
-A hand-derived backward kernel can replace ``_bwd`` without touching
-callers.
+The backward recomputes the forward on XLA, so ``value_and_grad`` through
+this path costs one kernel forward more than plain AD; it pays where the
+forward alone is called often (line searches, preview frames).
 
-Cluster culling (round-4): the cull TOPOLOGY (median-split permutation +
-leaf ranges, ``build_tri_cull``) is frozen host-side, but the BOUNDS are
+Cluster culling: the cull TOPOLOGY (median-split permutation + leaf
+ranges, ``build_tri_cull``) is frozen host-side, but the BOUNDS are
 recomputed traceably from the live vertices every call
 (``tri_cluster_bounds_jnp``) — culling stays sound as the optimizer moves
-geometry (a wandering vertex inflates its leaf's bound) and the 10k-tri
-OBJ inverse-rendering config runs the kernel fwd+bwd at culled speed
-instead of a flat 10k-triangle loop per bounce.
+geometry (a wandering vertex inflates its leaf's bound).
 """
 
 from __future__ import annotations
@@ -72,7 +68,8 @@ def pack_triangles_jnp(scene: Scene, perm=None) -> jax.Array:
     gather automatically.
 
     Note: the host packer precomputes in f64; this traceable version is f32
-    end-to-end (TPU has no f64), costing ~1 ulp on the edge-test constants.
+    end-to-end (gradients flow in the scene's dtype), costing ~1 ulp on the
+    edge-test constants.
     """
     v0 = scene.tri_v0.astype(jnp.float32)
     v1 = scene.tri_v1.astype(jnp.float32)
@@ -131,18 +128,10 @@ class TriCull:
 _CULL_CACHE: dict = {}
 
 
-def build_tri_cull(scene: Scene, leaf_target: int | None = None):
+def build_tri_cull(scene: Scene, leaf_target: int = 64):
     """Host-side static cull topology for ``scene`` (cached on identity);
-    None when the scene has too few triangles to benefit.
-
-    Default leaf size: 64 for scenes whose packed tables fit SMEM; 128
-    (one full stream slot, ``wavefront.STREAM_LEAF_PAD``) for scenes the
-    differentiable kernels must stream from HBM."""
+    None when the scene has too few triangles to benefit."""
     import weakref
-    if leaf_target is None:
-        from . import pallas_table_bytes, PALLAS_SMEM_BUDGET_BYTES
-        leaf_target = (128 if pallas_table_bytes(scene)
-                       > PALLAS_SMEM_BUDGET_BYTES else 64)
     key = id(scene)
     hit = _CULL_CACHE.get(key)
     if hit is not None and hit[0]() is scene:
@@ -202,129 +191,39 @@ def tri_cluster_bounds_jnp(scene: Scene, cull: TriCull) -> jax.Array:
     return jnp.concatenate([lo_p.T, hi_p.T]).astype(jnp.float32)
 
 
-# ---------------------------------------------------------------------------
-# HBM-streamed differentiable triangle tables (VERDICT r5 item 3): scenes
-# beyond the SMEM budget keep kernel fwd+bwd by placing the packed table in
-# HBM, leaf-aligned to 128-column slots DMA'd on demand.  The layout is
-# STATIC (from the cull topology); the VALUES are traceable, so gradients
-# flow exactly as in the SMEM path.
-# ---------------------------------------------------------------------------
-
-_STREAM_COLMAP_CACHE: dict = {}
-
-
-def _stream_colmap(cull: "TriCull") -> "np.ndarray":
-    """Static (C * STREAM_LEAF_PAD,) map: aligned column -> packed column
-    (or -1 for the zero padding of partially filled slots)."""
-    key = id(cull)
-    hit = _STREAM_COLMAP_CACHE.get(key)
-    if hit is not None and hit[0] is cull:
-        return hit[1]
-    P = wf.STREAM_LEAF_PAD
-    C = cull.ranges.shape[1]
-    colmap = np.full(C * P, -1, np.int64)
-    for k in range(C):
-        s, e = int(cull.ranges[0, k]), int(cull.ranges[1, k])
-        assert e - s <= P, "cull leaf exceeds the stream slot width"
-        colmap[k * P:k * P + (e - s)] = np.arange(s, e)
-    if len(_STREAM_COLMAP_CACHE) > 16:
-        _STREAM_COLMAP_CACHE.clear()
-    _STREAM_COLMAP_CACHE[key] = (cull, colmap)
-    return colmap
-
-
-def tri_stream_table_jnp(scene: Scene, cull: "TriCull") -> jax.Array:
-    """Traceable leaf-aligned packed table (STREAM_ROWS_PAD, C * 128):
-    leaf k's triangles occupy slot columns [128k, 128k + n); pad columns
-    are all-zero (plane normal 0 -> parallel -> never hit, the same
-    convention as the sorted engine's padded sub-leaves)."""
-    packed = pack_triangles_jnp(scene, perm=cull.perm)       # (21, T)
-    colmap = _stream_colmap(cull)
-    src = jnp.asarray(np.maximum(colmap, 0))
-    mask = jnp.asarray((colmap >= 0).astype(np.float32))
-    vals = packed[:, src] * mask[None, :]
-    pad_rows = wf.STREAM_ROWS_PAD - vals.shape[0]
-    return jnp.concatenate(
-        [vals, jnp.zeros((pad_rows, vals.shape[1]), vals.dtype)])
-
-
-def tri_stream_tops(cull: "TriCull", tric_b: jax.Array, group: int = 16):
-    """Top level over cull leaves: static ranges of ``group`` consecutive
-    DFS leaves + traceable union AABBs from the live leaf bounds
-    (conservative under empty-leaf sentinels: min/max against lo=+1 /
-    hi=-1 only enlarges a nonempty union)."""
-    C = cull.ranges.shape[1]
-    Ct = -(-C // group)
-    ranges = np.stack([np.arange(Ct, dtype=np.int32) * group,
-                       np.minimum(np.arange(1, Ct + 1, dtype=np.int32)
-                                  * group, C)])
-    pad = Ct * group - C
-    b = jnp.pad(tric_b, ((0, 0), (0, pad)))
-    if pad:
-        fix = jnp.concatenate(
-            [jnp.zeros((6, C), tric_b.dtype),
-             jnp.tile(jnp.asarray([[1.], [1.], [1.], [-1.], [-1.], [-1.]],
-                                  tric_b.dtype), (1, pad))], axis=1)
-        b = b + fix
-    lo = b[0:3].reshape(3, Ct, group).min(axis=2)
-    hi = b[3:6].reshape(3, Ct, group).max(axis=2)
-    return (jnp.concatenate([lo, hi], axis=0),
-            jnp.asarray(ranges))
-
-
-def _needs_stream(scene: Scene) -> bool:
-    from . import pallas_table_bytes, PALLAS_SMEM_BUDGET_BYTES
-    return pallas_table_bytes(scene) > PALLAS_SMEM_BUDGET_BYTES
+def make_statics(*, width, height, samples_per_pixel, depth, seed=0,
+                 parity_plane_sign=True, interpret=False, shard_rows=None,
+                 tri_cull=None):
+    """The hashable ``statics`` tuple of ``render_linear_diff``."""
+    return (width, height, samples_per_pixel, depth, seed,
+            parity_plane_sign, interpret, shard_rows, tri_cull)
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
 def render_linear_diff(scene: Scene, camera: Camera, statics,
                        row_offset=0, row_stride=1):
-    """Differentiable mean linear radiance [rows, W, 3], Pallas forward.
+    """Differentiable mean linear radiance [rows, W, 3], kernel forward.
 
-    statics: (width, height, samples_per_pixel, depth, seed,
-              parity_plane_sign, interpret) — optionally extended with an
-      8th entry bwd_engine ("xla" | "pallas"; "pallas" runs the
-      hand-derived backward kernel, wavefront_bwd.py — callers must check
-      eligibility via ``bwd_kernel_eligible``) and a 9th entry shard_rows
-      (render only that many rows; rows = height when absent/None).
+    statics: ``make_statics(...)`` — (width, height, samples_per_pixel,
+      depth, seed, parity_plane_sign, interpret, shard_rows, tri_cull);
+      shard_rows=None renders every row, tri_cull (``build_tri_cull``)
+      enables triangle culling under the corrected plane equation.
 
     row_offset/row_stride (traced ints) select the global rows
     ``row_offset + k * row_stride`` — a shard_map body passes
-    ``axis_index`` / the device count, composing the kernel forward AND
-    kernel backward with sharding (VERDICT r2 item 4).
+    ``axis_index`` / the device count, composing the kernel forward and
+    the recompute backward with sharding.
     """
     return _pallas_forward(scene, camera, statics, row_offset, row_stride)
 
 
-def _statics_cull(statics, pps):
-    cull = statics[9] if len(statics) > 9 else None
+def _pallas_forward(scene, camera, statics, row_offset, row_stride):
+    (width, height, spp, depth, seed, pps, interpret, shard_rows,
+     cull) = statics
     # cluster culling is only sound under the corrected plane equation
     # (same rule as the forward engines)
-    return None if pps else cull
-
-
-def _pallas_forward(scene, camera, statics, row_offset, row_stride):
-    width, height, spp, depth, seed, pps, interpret = statics[:7]
-    shard_rows = statics[8] if len(statics) > 8 else None
-    cull = _statics_cull(statics, pps)
-    sph = pack_spheres_jnp(scene)
-    cv = wf.camera_vec(camera)
-    if cull is not None and _needs_stream(scene):
-        tri = tri_stream_table_jnp(scene, cull)
-        tric_b = tri_cluster_bounds_jnp(scene, cull)
-        trit_b, trit_r = tri_stream_tops(cull, tric_b)
-        mean, _segs = wf.render_linear_pallas(
-            sph, tri, cv, width=width, height=height,
-            samples_per_pixel=spp, depth=depth, seed=seed,
-            parity_plane_sign=pps, interpret=interpret,
-            tri_clusters=(tric_b, jnp.asarray(cull.ranges)),
-            tri_stream=(trit_b, trit_r),
-            stream_tops=int(trit_r.shape[1]),
-            block_rows=16,
-            shard_rows=shard_rows, row_offset=row_offset,
-            row_stride=row_stride)
-        return mean
+    if pps:
+        cull = None
     tri = pack_triangles_jnp(scene,
                              perm=None if cull is None else cull.perm)
     tri_cl = None
@@ -332,30 +231,11 @@ def _pallas_forward(scene, camera, statics, row_offset, row_stride):
         tri_cl = (tri_cluster_bounds_jnp(scene, cull),
                   jnp.asarray(cull.ranges))
     mean, _segs = wf.render_linear_pallas(
-        sph, tri, cv, width=width, height=height, samples_per_pixel=spp,
-        depth=depth, seed=seed, parity_plane_sign=pps, interpret=interpret,
-        tri_clusters=tri_cl, shard_rows=shard_rows, row_offset=row_offset,
-        row_stride=row_stride,
-        # measured on the OBJ-10k grad config: 16-row tiles keep walk
-        # frustums tight for cluster culling (fwd+bwd 507 -> 427 ms)
-        block_rows=16 if tri_cl is not None else 32)
+        pack_spheres_jnp(scene), tri, wf.camera_vec(camera), width=width,
+        height=height, samples_per_pixel=spp, depth=depth, seed=seed,
+        parity_plane_sign=pps, interpret=interpret, tri_clusters=tri_cl,
+        shard_rows=shard_rows, row_offset=row_offset, row_stride=row_stride)
     return mean
-
-
-def bwd_kernel_eligible(scene: Scene,
-                        parity_plane_sign: bool | None = None) -> bool:
-    """True if the hand-derived backward kernel covers this (concrete)
-    scene.  Scenes whose packed tables fit SMEM always qualify; bigger
-    scenes qualify through the HBM-streamed triangle layout
-    (``tri_stream_table_jnp``) whenever cluster culling is sound — i.e.
-    the corrected plane equation (``parity_plane_sign=False``).  With
-    ``parity_plane_sign=None`` (legacy) only the SMEM criterion counts."""
-    from . import pallas_table_bytes, PALLAS_SMEM_BUDGET_BYTES
-    if pallas_table_bytes(scene) <= PALLAS_SMEM_BUDGET_BYTES:
-        return True
-    if parity_plane_sign is None or parity_plane_sign:
-        return False
-    return int(np.asarray(scene.tri_valid).sum()) >= 64
 
 
 def _fwd(scene, camera, statics, row_offset=0, row_stride=1):
@@ -364,98 +244,13 @@ def _fwd(scene, camera, statics, row_offset=0, row_stride=1):
             (scene, camera, row_offset, row_stride))
 
 
-def _zeros_ct(x):
-    import numpy as np
-    if jnp.issubdtype(x.dtype, jnp.floating):
-        return jnp.zeros_like(x)
-    return np.zeros(x.shape, jax.dtypes.float0)
-
-
 def _int_ct(x):
-    import numpy as np
     return np.zeros(jnp.shape(x), jax.dtypes.float0)
 
 
 def _bwd(statics, residuals, g):
-    width, height, spp, depth, seed, pps, interpret = statics[:7]
-    bwd_engine = statics[7] if len(statics) > 7 else "xla"
-    shard_rows = statics[8] if len(statics) > 8 else None
+    width, height, spp, depth, seed, pps, _interpret, shard_rows, _ = statics
     scene, camera, row_offset, row_stride = residuals
-    row_cts = (_int_ct(row_offset), _int_ct(row_stride))
-
-    if bwd_engine == "pallas":
-        from .pallas import wavefront_bwd as wb
-        import dataclasses
-        cull = _statics_cull(statics, pps)
-        perm = None if cull is None else cull.perm
-        sph = pack_spheres_jnp(scene)
-        if cull is not None and _needs_stream(scene):
-            # barriers pin the stage boundaries: without them XLA fuses
-            # the image cotangent into the winner-gradient reduction and
-            # materializes a (T, npix) intermediate (43 GB at the 164k
-            # scene / 256^2 — observed compile-time OOM)
-            g = jax.lax.optimization_barrier(g)
-            tri = tri_stream_table_jnp(scene, cull)
-            tric_b = tri_cluster_bounds_jnp(scene, cull)
-            trit_b, trit_r = tri_stream_tops(cull, tric_b)
-            dsph, dtri, dcam = wb.render_grad_pallas(
-                sph, tri, g, wf.camera_vec(camera), width=width,
-                height=height, samples_per_pixel=spp, depth=depth,
-                seed=seed, parity_plane_sign=pps, interpret=interpret,
-                tri_clusters=(tric_b, jnp.asarray(cull.ranges)),
-                tri_stream=(trit_b, trit_r),
-                stream_tops=int(trit_r.shape[1]),
-                n_tris_packed=scene.tri_v0.shape[0], block_rows=16,
-                shard_rows=shard_rows, row_offset=row_offset,
-                row_stride=row_stride)
-            dsph, dtri, dcam = jax.lax.optimization_barrier(
-                (dsph, dtri, dcam))
-        else:
-            tri = pack_triangles_jnp(scene, perm=perm)
-            tri_cl = None
-            if cull is not None:
-                tri_cl = (tri_cluster_bounds_jnp(scene, cull),
-                          jnp.asarray(cull.ranges))
-            dsph, dtri, dcam = wb.render_grad_pallas(
-                sph, tri, g, wf.camera_vec(camera), width=width,
-                height=height, samples_per_pixel=spp, depth=depth,
-                seed=seed, parity_plane_sign=pps, interpret=interpret,
-                tri_clusters=tri_cl, shard_rows=shard_rows,
-                block_rows=16 if tri_cl is not None else 32,
-                row_offset=row_offset, row_stride=row_stride)
-        M = scene.materials.count
-        mat = scene.sphere_mat
-        d_color = jnp.zeros((M, 3), jnp.float32).at[mat].add(dsph[4:7].T)
-        d_fuzz = jnp.zeros((M,), jnp.float32).at[mat].add(dsph[7])
-        d_ir = jnp.zeros((M,), jnp.float32).at[mat].add(dsph[8])
-        scene_ct = jax.tree.map(_zeros_ct, scene)
-        scene_ct = dataclasses.replace(
-            scene_ct,
-            sphere_center=dsph[0:3].T,
-            sphere_radius=dsph[3],
-            materials=dataclasses.replace(
-                scene_ct.materials, color=d_color, fuzz=d_fuzz, ir=d_ir))
-        # triangle gradients: the kernel returns the cotangent of the
-        # PACKED table; vertex + material contributions chain through the
-        # traceable packer's VJP (plane constants, unit normal, albedo) —
-        # which also un-permutes when cull reordered the columns
-        _, tri_vjp = jax.vjp(
-            lambda s: pack_triangles_jnp(s, perm=perm), scene)
-        (tri_ct,) = tri_vjp(dtri)
-        scene_ct = dataclasses.replace(
-            scene_ct,
-            tri_v0=scene_ct.tri_v0 + tri_ct.tri_v0,
-            tri_v1=scene_ct.tri_v1 + tri_ct.tri_v1,
-            tri_v2=scene_ct.tri_v2 + tri_ct.tri_v2,
-            materials=dataclasses.replace(
-                scene_ct.materials,
-                color=scene_ct.materials.color + tri_ct.materials.color))
-        cam_ct = jax.tree.map(_zeros_ct, camera)
-        cam_ct = dataclasses.replace(
-            cam_ct, origin=dcam[0:3], lower_left_corner=dcam[3:6],
-            horizontal=dcam[6:9], vertical=dcam[9:12])
-        return (scene_ct, cam_ct) + row_cts
-
     rows_here = height if shard_rows is None else shard_rows
     seed_word = jnp.uint32(seed) * render_mod._SEED_MIX
 
@@ -473,7 +268,7 @@ def _bwd(statics, residuals, g):
         return (img_sum * (1.0 / spp)).reshape(rows_here, width, 3)
 
     _, vjp_fn = jax.vjp(xla_render, scene, camera)
-    return vjp_fn(g) + row_cts
+    return vjp_fn(g) + (_int_ct(row_offset), _int_ct(row_stride))
 
 
 render_linear_diff.defvjp(_fwd, _bwd)

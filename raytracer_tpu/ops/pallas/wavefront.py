@@ -1,60 +1,67 @@
-"""Fused Pallas TPU megakernel: the whole path-trace in VMEM.
+"""Fused path-trace kernel for the GPU: Pallas on the Triton route.
 
-The XLA wavefront renderer (render.py) materializes the ray state between
-scan steps in HBM; at the bench shape that costs ~100 HBM round trips of
-multi-MB state per sample.  This kernel keeps EVERYTHING resident:
+The XLA wavefront renderer (render.py) writes the whole ray state to
+device memory after every bounce and intersects with one ``lax.scan`` step
+per primitive, which XLA does not fuse across.  This kernel is the
+standard GPU design instead: one program per block of pixels, with the
+ray state of every pixel held in registers across all samples and
+bounces, and the image written once.
 
-  grid = (pixel blocks,); each block holds BLOCK = R x 128 rays as (R, 128)
-  f32 planes in VMEM/registers, loops samples and bounces with fori_loop,
-  and writes only the final accumulated radiance — HBM traffic is one write
-  of the image per render.
+  grid = (pixel blocks,): each block owns ``block_pixels`` consecutive
+  pixels of its row band (a power of two), loops samples with
+  ``fori_loop`` and bounces with a ``while_loop`` that exits as soon as
+  no pixel of the block is alive.  Blocks run in parallel and in no
+  order; nothing carries over between them.
 
-  The scene rides in scalar-prefetch SMEM arrays (spheres: (11, S) —
-  center xyz, radius, r^2, material kind/albedo/fuzz/ir; triangles: (22, T)
-  — plane normal, d, edge-test constants g_k and v_k.g_k, unit normal,
-  material), and the intersection loop walks primitives with a fori_loop of
-  scalar reads broadcast against the ray planes.  Instead of tracking a hit
-  INDEX and gathering afterwards (gathers are expensive on the VPU), the
-  loop maintains the winning primitive's attributes directly in 12 select
-  planes.
+  The scene stays in device memory as packed tables (spheres: (11, S) —
+  center xyz, radius, r^2, material kind/albedo/fuzz/ir; triangles:
+  (21, T) — plane normal, d, edge-test constants g_k and v_k.g_k,
+  material), read one scalar at a time by primitive index; every thread
+  of the block reads the same address, which the L1 and L2 caches serve.
+  Instead of tracking a hit INDEX and gathering afterwards, the loop
+  keeps the winning primitive's attributes in select planes.
+
+  Optional cluster culling: primitives are grouped by a median split
+  (``cluster_spheres`` / ``cluster_triangles``) and a cluster's members
+  are visited only when some live pixel of the block can reach its
+  bounding box before its current closest hit.
 
 Semantics are the reference algorithm exactly as in render.py/_bounce_step
 (common.rs:263-285 bounce rules, materials.rs:42-102 scatter rules,
 common.rs:60-166 intersections, cube-sample RNG distribution) with the same
 pcg3d counter streams, so the kernel agrees with the XLA path to float
-rounding (different FMA contractions; tests use small tolerances).
-
-Limits: S and T must fit in SMEM (fine for the reference scenes and the
-~500-sphere bench config; the big-mesh config falls back to the XLA path —
-see render_fast dispatch in ops/__init__.py).
+rounding (different FMA contraction and division rounding).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
 
 import jax
 import numpy as np
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
+from ... import rng
 from ...camera import Camera
-from ...scene import Scene, DIFFUSE, METAL, DIELECTRIC, EMISSION
-from ... import intersect as intersect_mod
+from ...scene import Scene
 
-LANES = 128
 _SEED_MIX = np.uint32(0x85EBCA6B)
 
-# sphere SMEM layout rows
+# pixels and warps per program (powers of two).  Measured on the H100:
+# 128 pixels x 4 warps was fastest of 64..256 pixels x 2..4 warps on all
+# three timed scenes (PERF.md)
+BLOCK_PIXELS = 128
+NUM_WARPS = 4
+
+# sphere table rows
 _SPH_CX, _SPH_CY, _SPH_CZ, _SPH_R, _SPH_R2 = 0, 1, 2, 3, 4
 _SPH_KIND, _SPH_AR, _SPH_AG, _SPH_AB, _SPH_FUZZ, _SPH_IR = 5, 6, 7, 8, 9, 10
 SPH_ROWS = 11
 
-# triangle SMEM layout rows.  The shading normal is NOT stored: it is the
-# normalized plane normal, recovered once per bounce by _resolve_tri_normals
-# (3 rows saved keeps the ~10k-tri OBJ scene inside the SMEM budget).
+# triangle table rows.  The shading normal is NOT stored: it is the
+# normalized plane normal, recovered once per bounce by _resolve_tri_normals.
 # _TRI_EXTRA holds the material's fuzz (metal) or ir (dielectric) — they are
 # mutually exclusive by kind, so one row serves both (materials.rs:7-12).
 (_TRI_NX, _TRI_NY, _TRI_NZ, _TRI_D,
@@ -66,32 +73,6 @@ TRI_ROWS = 21
 
 T_MIN = np.float32(0.001)
 BIG = np.float32(3.0e38)
-
-
-def _pcg3d(x, y, z):
-    mul = jnp.uint32(1664525)
-    add = jnp.uint32(1013904223)
-    x = x * mul + add
-    y = y * mul + add
-    z = z * mul + add
-    x = x + y * z
-    y = y + z * x
-    z = z + x * y
-    x = x ^ (x >> 16)
-    y = y ^ (y >> 16)
-    z = z ^ (z >> 16)
-    x = x + y * z
-    y = y + z * x
-    z = z + x * y
-    return x, y, z
-
-
-def _u01(bits):
-    # top-24-bit mapping, identical to rng.random_f32_from_bits24 (Mosaic
-    # has no uint32->f32 cast; 24 bits fit int32 exactly)
-    b24 = jax.lax.shift_right_logical(bits, jnp.uint32(8))
-    i = pltpu.bitcast(b24, jnp.int32)
-    return i.astype(jnp.float32) * jnp.float32(1.0 / 16777215.0)
 
 
 def pack_spheres(scene: Scene, perm=None) -> np.ndarray:
@@ -200,9 +181,6 @@ def _median_split_order(points: np.ndarray, leaf_target: int):
     return perm, slices
 
 
-_BOUND_PAD = 1.0 + 1e-4  # conservative f32 padding on cluster bound radii
-
-
 def _safe_inv_dir(dx, dy, dz):
     """Per-lane 1/d with tiny components clamped (slab test stays finite
     and conservative: an axis-parallel ray outside a slab gets a huge
@@ -304,15 +282,9 @@ def cluster_triangles(scene: Scene, leaf_target: int = 64):
     return perm, bounds, ranges
 
 
-# ---------------------------------------------------------------------------
-# Shared kernel machinery — used by BOTH the SMEM-resident kernel below and
-# the HBM-streamed big-scene kernel (wavefront_stream.py) so the physics
-# (reference semantics) has a single source of truth.
-# ---------------------------------------------------------------------------
-
 def _sphere_loop(sph_ref, sphc_b_ref, sphc_r_ref, n_spheres, n_sph_clusters,
-                 ox, oy, oz, dx, dy, dz, alive, hs0, inv_d=None):
-    """Closest-hit over SMEM-resident spheres (common.rs:60-98), optionally
+                 ox, oy, oz, dx, dy, dz, alive, hs0):
+    """Closest-hit over the sphere table (common.rs:60-98), optionally
     with cluster culling.  hs0 = (t_best, nx, ny, nz, kind, ar, ag, ab, fz,
     irx); nx/ny/nz carry the WINNING CENTER until _sphere_normals."""
 
@@ -351,12 +323,11 @@ def _sphere_loop(sph_ref, sphc_b_ref, sphc_r_ref, n_spheres, n_sph_clusters,
         return (t_best, nx, ny, nz, kind, ar, ag, ab, fz, irx)
 
     if n_sph_clusters > 0:
-        # block-level culling: one AABB slab test over the whole
-        # wavefront per cluster; when no live lane can beat its current
-        # closest hit, the member loop runs with a zero trip count
-        # (traced bounds, no cond needed)
-        ivx, ivy, ivz = (inv_d if inv_d is not None
-                         else _safe_inv_dir(dx, dy, dz))
+        # block-level culling: one AABB slab test over the block's rays
+        # per cluster; when no live ray can beat its current closest hit,
+        # the member loop runs with a zero trip count (traced bounds, no
+        # cond needed)
+        ivx, ivy, ivz = _safe_inv_dir(dx, dy, dz)
 
         def sph_cluster_body(ci, hs):
             t_best = hs[0]
@@ -369,75 +340,6 @@ def _sphere_loop(sph_ref, sphc_b_ref, sphc_r_ref, n_spheres, n_sph_clusters,
 
         return jax.lax.fori_loop(0, n_sph_clusters, sph_cluster_body, hs0)
     return jax.lax.fori_loop(0, n_spheres, sph_body, hs0)
-
-
-def _sphere_loop_lowp(sph_ref, n_spheres, ox, oy, oz, dx, dy, dz, hs0):
-    """bfloat16 variant of the sphere closest-hit loop — the
-    reduced-precision experiment (the reference's fp_vec.rs 16.16
-    fixed-point toy, reimagined for TPU dtypes; see PERFSTUDY "lowp").
-    The quadratic (half-b form, common.rs:74-97) runs entirely in bf16;
-    the selected t is upcast for the f32 closest-hit compare, so the
-    attribute-select chain stays shared.  No cluster culling (the study
-    scenes are small).  bf16 shares f32's exponent range, so BIG and the
-    disc>=0 guard behave identically — only mantissa precision drops."""
-    bf = jnp.bfloat16
-    oxl, oyl, ozl = ox.astype(bf), oy.astype(bf), oz.astype(bf)
-    dxl, dyl, dzl = dx.astype(bf), dy.astype(bf), dz.astype(bf)
-
-    def sph_body(si, hs):
-        (t_best, nx, ny, nz, kind, ar, ag, ab, fz, irx) = hs
-        cx = sph_ref[_SPH_CX, si]
-        cy = sph_ref[_SPH_CY, si]
-        cz = sph_ref[_SPH_CZ, si]
-        r2f = sph_ref[_SPH_R2, si]
-        ocx = oxl - bf(cx)
-        ocy = oyl - bf(cy)
-        ocz = ozl - bf(cz)
-        # the MULTIPLY/FMA chain (the bulk of the loop) runs in bf16;
-        # root selection upcasts — Mosaic has no bf16 compare/select
-        half_b = (ocx * dxl + ocy * dyl + ocz * dzl).astype(jnp.float32)
-        cc = (ocx * ocx + ocy * ocy + ocz * ocz
-              - bf(r2f)).astype(jnp.float32)
-        disc = half_b * half_b - cc
-        ok = (disc >= 0.0) & (r2f > 0.0)
-        sq = jnp.sqrt(jnp.maximum(disc, 0.0))
-        root1 = -half_b - sq
-        root2 = -half_b + sq
-        t = jnp.where(root1 > T_MIN, root1,
-                      jnp.where(root2 > T_MIN, root2, BIG))
-        t = jnp.where(ok, t, BIG)
-        better = t < t_best
-        t_best = jnp.where(better, t, t_best)
-        nx = jnp.where(better, cx, nx)
-        ny = jnp.where(better, cy, ny)
-        nz = jnp.where(better, cz, nz)
-        kind = jnp.where(better, sph_ref[_SPH_KIND, si], kind)
-        ar = jnp.where(better, sph_ref[_SPH_AR, si], ar)
-        ag = jnp.where(better, sph_ref[_SPH_AG, si], ag)
-        ab = jnp.where(better, sph_ref[_SPH_AB, si], ab)
-        fz = jnp.where(better, sph_ref[_SPH_FUZZ, si], fz)
-        irx = jnp.where(better, sph_ref[_SPH_IR, si], irx)
-        return (t_best, nx, ny, nz, kind, ar, ag, ab, fz, irx)
-
-    return jax.lax.fori_loop(0, n_spheres, sph_body, hs0)
-
-
-def _bound_test(b_ref, ci, ox, oy, oz, dx, dy, dz, t_best, alive):
-    """Conservative ray x bounding-sphere overlap test: could any live lane
-    hit something inside bound ``ci`` closer than its current t_best?"""
-    bcx = b_ref[0, ci]
-    bcy = b_ref[1, ci]
-    bcz = b_ref[2, ci]
-    br2 = b_ref[3, ci]
-    ocx = ox - bcx
-    ocy = oy - bcy
-    ocz = oz - bcz
-    hb = ocx * dx + ocy * dy + ocz * dz
-    cc = ocx * ocx + ocy * ocy + ocz * ocz - br2
-    disc = hb * hb - cc
-    sq = jnp.sqrt(jnp.maximum(disc, 0.0))
-    entry = jnp.maximum(-hb - sq, 0.0)
-    return (disc >= 0.0) & (-hb + sq > T_MIN) & (entry <= t_best) & alive
 
 
 def _sphere_normals(ox, oy, oz, dx, dy, dz, hs):
@@ -462,11 +364,12 @@ def _sphere_normals(ox, oy, oz, dx, dy, dz, hs):
     return (t_best, nx, ny, nz, kind, ar, ag, ab, fz, irx), (hpx, hpy, hpz)
 
 
-def _make_tri_body(read, parity_plane_sign, ox, oy, oz, dx, dy, dz):
+def _make_tri_body(tri_ref, parity_plane_sign, ox, oy, oz, dx, dy, dz):
     """Triangle closest-hit fori_loop body (common.rs:124-166 via edge
-    constants).  ``read(row, i)`` reads one scalar of triangle ``i`` — from
-    the SMEM-resident table (SMEM kernel) or a DMA'd leaf buffer (streamed
-    kernel)."""
+    constants) over the triangle table."""
+
+    def read(row, ti):
+        return tri_ref[row, ti]
 
     def tri_body(ti, hs):
         (t_best, nx, ny, nz, kind, ar, ag, ab, fz, irx) = hs
@@ -556,12 +459,12 @@ def _scatter_bookkeep(pix_u, s_u, b, ox, oy, oz, dx, dy, dz, hpx, hpy, hpz,
     hpy = jnp.where(hit, hpy, oy)
     hpz = jnp.where(hit, hpz, oz)
 
-    bx, by, bz = _pcg3d(pix_u, s_u, jnp.uint32(1 + b))
+    bx, by, bz = rng.pcg3d(pix_u, s_u, jnp.uint32(1 + b))
     two = jnp.float32(2.0)
     onef = jnp.float32(1.0)
-    rx = _u01(bx) * two - onef
-    ry = _u01(by) * two - onef
-    rz = _u01(bz) * two - onef
+    rx = rng.random_f32_from_bits24(bx) * two - onef
+    ry = rng.random_f32_from_bits24(by) * two - onef
+    rz = rng.random_f32_from_bits24(bz) * two - onef
     rl = jnp.sqrt(rx * rx + ry * ry + rz * rz)
     rx, ry, rz = rx / rl, ry / rl, rz / rl   # unit cube sample
 
@@ -594,7 +497,7 @@ def _scatter_bookkeep(pix_u, s_u, b, ox, oy, oz, dx, dy, dz, hpx, hpy, hpz,
 
     # dielectric: reference's inverted front-face rule
     inside = dn >= 0.0
-    sgn = jnp.where(inside, -onef, onef)
+    sgn = jnp.where(inside, jnp.float32(-1.0), onef)
     nex = sgn * nx
     ney = sgn * ny
     nez = sgn * nz
@@ -664,113 +567,41 @@ def _scatter_bookkeep(pix_u, s_u, b, ox, oy, oz, dx, dy, dz, hpx, hpy, hpz,
     return (ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, rr, rg, rb, alive_f, seg)
 
 
-def _block_pixel_setup(width, height, shard_rows, R, ntx, seed_ref):
-    """Per-block pixel id / activity planes shared by both kernels."""
-    blk = pl.program_id(0)
-    ty = blk // ntx
-    tx = blk - ty * ntx
-    # seed_ref[1] is the global row offset and seed_ref[2] the row
-    # STRIDE of this invocation's row set — a device's shard under
-    # shard_map owns global rows offset, offset+stride, offset+2*stride,
-    # ... (stride = n_devices interleaves rows round-robin across the
-    # mesh, which load-balances sky-heavy vs bounce-heavy regions; see
-    # parallel/sharding.py).  Pixel ids/RNG streams depend only on the
-    # global (row, col), so any (offset, stride) tiling is bitwise
-    # identical to the matching rows of a single-device render.
+def _pixel_setup(width, height, shard_rows, block, seed_ref):
+    """Per-block pixel ids and activity.  Block ``i`` owns pixels
+    ``i * block ...`` of its row band, in raster order.
+
+    seed_ref = [seed word, row offset, row stride]: this call renders
+    ``shard_rows`` global rows offset, offset + stride, offset + 2*stride,
+    ... (stride = n_devices interleaves rows across the mesh; see
+    parallel/sharding.py).  Pixel ids and RNG streams depend only on the
+    global (row, col), so any (offset, stride) tiling is bitwise identical
+    to the matching rows of a whole-image render."""
+    lane = jax.lax.broadcasted_iota(jnp.int32, (block,), 0)
+    p = pl.program_id(0) * block + lane
+    band_row = p // width
+    pcol = p - band_row * width
     row_offset = seed_ref[1].astype(jnp.int32)
     row_stride = seed_ref[2].astype(jnp.int32)
-    lane_row = jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 0)
-    lane_col = jax.lax.broadcasted_iota(jnp.int32, (R, LANES), 1)
-    band_row = ty * R + lane_row        # row within this shard's band
     prow = row_offset + band_row * row_stride
-    pcol = tx * LANES + lane_col
-    # lanes outside the image OR outside this shard's row band are dead
-    # from the start (band overlap would double-trace and double-count)
-    active0 = (prow < height) & (pcol < width) & (band_row < shard_rows)
+    # pixels past the band, or past the image, are dead from the start
+    active0 = (band_row < shard_rows) & (prow < height)
     prow = jnp.minimum(prow, height - 1)
-    pcol = jnp.minimum(pcol, width - 1)
-    pix_safe = prow * width + pcol                     # (R,128) int32
-    pix_u = pix_safe.astype(jnp.uint32) + seed_ref[0]
+    pix_u = (prow * width + pcol).astype(jnp.uint32) + seed_ref[0]
     return (active0, prow.astype(jnp.float32), pcol.astype(jnp.float32),
             pix_u)
 
 
-# leaf slot width of the STREAMED differentiable triangle layout: each
-# cull leaf occupies one 128-column (lane-aligned, 12 KB) slot of the
-# HBM-resident packed table, DMA'd on demand into SMEM scratch — the
-# differentiable path's lift of the SMEM table budget (ops.diff builds
-# the aligned table traceably so gradients flow; VERDICT r5 item 3)
-STREAM_LEAF_PAD = 128
-# row padding of the HBM table (same rule as wavefront_stream.TRI_ROWS_PAD)
-STREAM_ROWS_PAD = -(-TRI_ROWS // 8) * 8
-
-
-def _streamed_tri_walk(hs, *, tri_hbm, tri_smem, dma_sem, tric_b_ref,
-                       tric_r_ref, trit_b_ref, trit_r_ref, n_tri_tops,
-                       make_body, ox, oy, oz, ivx, ivy, ivz, alive):
-    """Two-level culled triangle closest-hit over an HBM-resident
-    leaf-aligned table: top nodes (groups of consecutive DFS leaves) gate
-    leaf AABB tests; a passing leaf's 128-column slot is DMA'd into SMEM
-    and ground by ``make_body(read, ci)`` (``read`` indexes the scratch
-    locally; ``ci`` lets the body recover global ids via tric_r)."""
-    def cluster_body(ci, hs):
-        t_best = hs[0]
-        possible = _aabb_test(tric_b_ref, ci, ox, oy, oz, ivx, ivy, ivz,
-                              t_best, alive)
-        any_p = jnp.max(jnp.where(possible, 1.0, 0.0))
-        n = jnp.where(any_p > 0.0,
-                      tric_r_ref[1, ci] - tric_r_ref[0, ci], 0)
-
-        @pl.when(any_p > 0.0)
-        def _():
-            dma = pltpu.make_async_copy(
-                tri_hbm.at[:, pl.ds(ci * STREAM_LEAF_PAD,
-                                    STREAM_LEAF_PAD)],
-                tri_smem, dma_sem)
-            dma.start()
-            dma.wait()
-
-        return jax.lax.fori_loop(0, n, make_body(
-            lambda row, i: tri_smem[row, i], ci), hs)
-
-    def top_body(tci, hs):
-        t_best = hs[0]
-        possible = _aabb_test(trit_b_ref, tci, ox, oy, oz, ivx, ivy, ivz,
-                              t_best, alive)
-        any_t = jnp.max(jnp.where(possible, 1.0, 0.0))
-        c0 = jnp.where(any_t > 0.0, trit_r_ref[0, tci], 0)
-        c1 = jnp.where(any_t > 0.0, trit_r_ref[1, tci], 0)
-        return jax.lax.fori_loop(c0, c1, cluster_body, hs)
-
-    return jax.lax.fori_loop(0, n_tri_tops, top_body, hs)
-
-
-def _make_kernel(width, height, spp, depth, n_spheres, n_tris, block_rows,
-                 parity_plane_sign, count_all_lanes,
-                 n_sph_clusters=0, n_tri_clusters=0, shard_rows=None,
-                 lowp=False, tri_stream=False, n_tri_tops=0):
-    npix = width * height
-    R = block_rows
-    if shard_rows is None:
-        shard_rows = height
-    ntx = pl.cdiv(width, LANES)
+def _make_kernel(width, height, spp, depth, n_spheres, n_tris, block,
+                 parity_plane_sign, n_sph_clusters, n_tri_clusters,
+                 shard_rows):
     inv_w1 = np.float32(width - 1)
     inv_h1 = np.float32(height - 1)
 
-    def kernel(*refs):
-        if tri_stream:
-            (cam_ref, sph_ref, sphc_b_ref, sphc_r_ref, tric_b_ref,
-             tric_r_ref, trit_b_ref, trit_r_ref, seed_ref, tri_hbm,
-             out_ref, tri_smem, dma_sem) = refs
-        else:
-            (cam_ref, sph_ref, sphc_b_ref, sphc_r_ref, tri_ref,
-             tric_b_ref, tric_r_ref, seed_ref, out_ref) = refs
-        # blocks are (R x 128)-pixel IMAGE TILES, not linear pixel ranges:
-        # a tile's rays form a tight frustum, which is what makes the
-        # cluster bound tests below actually cull (a full-width stripe of
-        # pixels would touch every cluster every bounce)
-        active0, prow_f, pcol_f, pix_u = _block_pixel_setup(
-            width, height, shard_rows, R, ntx, seed_ref)
+    def kernel(cam_ref, seed_ref, sph_ref, sphc_b_ref, sphc_r_ref, tri_ref,
+               tric_b_ref, tric_r_ref, out_r, out_g, out_b, out_seg):
+        active0, prow_f, pcol_f, pix_u = _pixel_setup(
+            width, height, shard_rows, block, seed_ref)
 
         ox0 = cam_ref[0]
         oy0 = cam_ref[1]
@@ -779,19 +610,16 @@ def _make_kernel(width, height, spp, depth, n_spheres, n_tris, block_rows,
         hx, hy, hz = cam_ref[6], cam_ref[7], cam_ref[8]
         vx, vy, vz = cam_ref[9], cam_ref[10], cam_ref[11]
 
-        zero = jnp.zeros((R, LANES), jnp.float32)
-        one = jnp.ones((R, LANES), jnp.float32)
+        zero = jnp.zeros((block,), jnp.float32)
+        one = jnp.ones((block,), jnp.float32)
 
         def trace_sample(s, carry):
-            # NOTE: loop carries are kept to pure f32 vector planes — Mosaic
-            # fails to legalize scf.for with mixed scalar/i1 carries, which
-            # is also why the bounce loop below is a static Python unroll.
             acc_r, acc_g, acc_b, seg = carry
-            s_u = jnp.uint32(s)
+            s_u = s.astype(jnp.uint32)
 
-            ju, jv, _ = _pcg3d(pix_u, s_u, jnp.uint32(0))
-            u = (pcol_f + _u01(ju)) / inv_w1
-            v = (prow_f + _u01(jv)) / inv_h1
+            ju, jv, _ = rng.pcg3d(pix_u, s_u, jnp.uint32(0))
+            u = (pcol_f + rng.random_f32_from_bits24(ju)) / inv_w1
+            v = (prow_f + rng.random_f32_from_bits24(jv)) / inv_h1
 
             dx = llcx + u * hx + v * vx - ox0
             dy = llcy + u * hy + v * vy - oy0
@@ -799,28 +627,9 @@ def _make_kernel(width, height, spp, depth, n_spheres, n_tris, block_rows,
             dlen = jnp.sqrt(dx * dx + dy * dy + dz * dz)
             dx, dy, dz = dx / dlen, dy / dlen, dz / dlen
 
-            ox = jnp.broadcast_to(ox0, (R, LANES))
-            oy = jnp.broadcast_to(oy0, (R, LANES))
-            oz = jnp.broadcast_to(oz0, (R, LANES))
-
-            tpr = one
-            tpg = one
-            tpb = one
-            rr = zero
-            rg = zero
-            rb = zero
-            alive_f = jnp.where(active0, 1.0, 0.0)
-
-            # bounce loop as a while with ONLY f32-vector + i32-scalar
-            # carries (Mosaic can't legalize scf.for/while with f32-scalar
-            # or i1-vector carries, and a static unroll at depth 8 explodes
-            # compile time).  The while predicate adds dead-wavefront early
-    # exit: once every lane has terminated, remaining bounces are skipped
-            # (big win for sky-heavy scenes).
+            # the bounce loop exits once no pixel of the block is alive
             def bounce_cond(st):
-                b = st[0]
-                alive_f = st[13]
-                return (b < depth) & (jnp.sum(alive_f) > 0.0)
+                return (st[0] < depth) & (jnp.max(st[13]) > 0.0)
 
             def bounce_body(st):
                 (b, ox, oy, oz, dx, dy, dz, tpr, tpg, tpb,
@@ -829,59 +638,36 @@ def _make_kernel(width, height, spp, depth, n_spheres, n_tris, block_rows,
                 seg = seg + alive_f
 
                 # ---- closest hit over spheres (common.rs:60-98) ----------
-                hs0 = (jnp.full((R, LANES), BIG),
+                hs0 = (jnp.full((block,), BIG),
                        zero, zero, one,            # winning center (nx..nz)
                        zero, zero, zero, zero,     # kind, ar, ag, ab
                        zero, one)                  # fz, irx
-                if lowp:
-                    hs = _sphere_loop_lowp(sph_ref, n_spheres,
-                                           ox, oy, oz, dx, dy, dz, hs0)
-                else:
-                    hs = _sphere_loop(sph_ref, sphc_b_ref, sphc_r_ref,
-                                      n_spheres, n_sph_clusters,
-                                      ox, oy, oz, dx, dy, dz, alive, hs0)
+                hs = _sphere_loop(sph_ref, sphc_b_ref, sphc_r_ref,
+                                  n_spheres, n_sph_clusters,
+                                  ox, oy, oz, dx, dy, dz, alive, hs0)
                 hs, (hpx, hpy, hpz) = _sphere_normals(
                     ox, oy, oz, dx, dy, dz, hs)
 
                 # ---- triangles (common.rs:124-166 via edge constants) ----
                 if n_tris > 0:
-                    if tri_stream:
+                    tri_body = _make_tri_body(tri_ref, parity_plane_sign,
+                                              ox, oy, oz, dx, dy, dz)
+                    if n_tri_clusters > 0:
                         ivx, ivy, ivz = _safe_inv_dir(dx, dy, dz)
-                        hs = _streamed_tri_walk(
-                            hs, tri_hbm=tri_hbm, tri_smem=tri_smem,
-                            dma_sem=dma_sem, tric_b_ref=tric_b_ref,
-                            tric_r_ref=tric_r_ref, trit_b_ref=trit_b_ref,
-                            trit_r_ref=trit_r_ref, n_tri_tops=n_tri_tops,
-                            make_body=lambda read, ci: _make_tri_body(
-                                read, parity_plane_sign,
-                                ox, oy, oz, dx, dy, dz),
-                            ox=ox, oy=oy, oz=oz, ivx=ivx, ivy=ivy,
-                            ivz=ivz, alive=alive)
+
+                        def tri_cluster_body(ci, hs):
+                            possible = _aabb_test(
+                                tric_b_ref, ci, ox, oy, oz, ivx, ivy, ivz,
+                                hs[0], alive)
+                            any_p = jnp.max(jnp.where(possible, 1.0, 0.0))
+                            s0 = jnp.where(any_p > 0.0, tric_r_ref[0, ci], 0)
+                            s1 = jnp.where(any_p > 0.0, tric_r_ref[1, ci], 0)
+                            return jax.lax.fori_loop(s0, s1, tri_body, hs)
+
+                        hs = jax.lax.fori_loop(0, n_tri_clusters,
+                                               tri_cluster_body, hs)
                     else:
-                        tri_body = _make_tri_body(
-                            lambda row, ti: tri_ref[row, ti],
-                            parity_plane_sign, ox, oy, oz, dx, dy, dz)
-                        if n_tri_clusters > 0:
-                            ivx, ivy, ivz = _safe_inv_dir(dx, dy, dz)
-
-                            def tri_cluster_body(ci, hs):
-                                t_best = hs[0]
-                                possible = _aabb_test(
-                                    tric_b_ref, ci, ox, oy, oz, ivx, ivy,
-                                    ivz, t_best, alive)
-                                any_p = jnp.max(
-                                    jnp.where(possible, 1.0, 0.0))
-                                s0 = jnp.where(any_p > 0.0,
-                                               tric_r_ref[0, ci], 0)
-                                s1 = jnp.where(any_p > 0.0,
-                                               tric_r_ref[1, ci], 0)
-                                return jax.lax.fori_loop(s0, s1, tri_body,
-                                                         hs)
-
-                            hs = jax.lax.fori_loop(0, n_tri_clusters,
-                                                   tri_cluster_body, hs)
-                        else:
-                            hs = jax.lax.fori_loop(0, n_tris, tri_body, hs)
+                        hs = jax.lax.fori_loop(0, n_tris, tri_body, hs)
                     hs = _resolve_tri_normals(hs)
                     t_best = hs[0]
                     hpx = ox + t_best * dx
@@ -896,8 +682,12 @@ def _make_kernel(width, height, spp, depth, n_spheres, n_tris, block_rows,
                 return (b + 1, ox, oy, oz, dx, dy, dz, tpr, tpg, tpb,
                         rr, rg, rb, alive_f, seg)
 
-            st = (jnp.int32(0), ox, oy, oz, dx, dy, dz, tpr, tpg, tpb,
-                  rr, rg, rb, alive_f, seg)
+            st = (jnp.int32(0),
+                  jnp.broadcast_to(ox0, (block,)),
+                  jnp.broadcast_to(oy0, (block,)),
+                  jnp.broadcast_to(oz0, (block,)),
+                  dx, dy, dz, one, one, one, zero, zero, zero,
+                  jnp.where(active0, 1.0, 0.0), seg)
             st = jax.lax.while_loop(bounce_cond, bounce_body, st)
             rr, rg, rb, seg = st[10], st[11], st[12], st[14]
             return (acc_r + rr, acc_g + rg, acc_b + rb, seg)
@@ -906,10 +696,10 @@ def _make_kernel(width, height, spp, depth, n_spheres, n_tris, block_rows,
             0, spp, trace_sample, (zero, zero, zero, zero))
 
         inv_spp = jnp.float32(1.0 / spp)
-        out_ref[0] = acc_r * inv_spp
-        out_ref[1] = acc_g * inv_spp
-        out_ref[2] = acc_b * inv_spp
-        out_ref[3] = seg           # per-lane traced-segment count
+        out_r[...] = acc_r * inv_spp
+        out_g[...] = acc_g * inv_spp
+        out_b[...] = acc_b * inv_spp
+        out_seg[...] = seg          # per-pixel traced-segment count
 
     return kernel
 
@@ -917,37 +707,31 @@ def _make_kernel(width, height, spp, depth, n_spheres, n_tris, block_rows,
 @functools.partial(
     jax.jit,
     static_argnames=("width", "height", "samples_per_pixel", "depth",
-                     "block_rows", "parity_plane_sign", "count_all_lanes",
-                     "interpret", "shard_rows", "lowp", "stream_tops"))
+                     "block_pixels", "parity_plane_sign", "interpret",
+                     "shard_rows"))
 def render_linear_pallas(sph_table, tri_table, cam_vec, *, width, height,
-                         samples_per_pixel, depth, seed=0, block_rows=32,
-                         parity_plane_sign=True, count_all_lanes=False,
-                         interpret=False, sph_clusters=None,
-                         tri_clusters=None, shard_rows=None, row_offset=0,
-                         row_stride=1, lowp=False, tri_stream=None,
-                         stream_tops=0):
+                         samples_per_pixel, depth, seed=0,
+                         block_pixels=BLOCK_PIXELS, parity_plane_sign=True,
+                         interpret=False, sph_clusters=None, tri_clusters=None,
+                         shard_rows=None, row_offset=0, row_stride=1):
     """Mean linear radiance [rows, W, 3] + segment count, fused kernel.
 
     sph_table: (SPH_ROWS, S) from pack_spheres; tri_table: (TRI_ROWS, T)
     from pack_triangles; cam_vec: (12,) f32 [origin, llc, horizontal,
-    vertical].  sph_clusters/tri_clusters: optional (bounds (4, C) f32,
+    vertical].  sph_clusters/tri_clusters: optional (bounds (6, C) f32,
     ranges (2, C) i32) from cluster_spheres/cluster_triangles — the TABLES
-    MUST then be packed with the matching perm; enables block-level culling.
+    MUST then be packed with the matching perm; enables cluster culling.
 
     shard_rows/row_offset/row_stride render a ROW SUBSET of the full image:
     ``shard_rows`` (static; default = height) rows at global rows
     ``row_offset + k * row_stride`` (both traced, so a shard_map body can
     pass ``axis_index`` / the device count).  Pixel ids — and therefore RNG
-    streams and every per-lane float — depend only on global (row, col), so
-    any banded or interleaved render is bitwise identical to the matching
-    rows of a whole-image render.  stride = n_devices round-robins rows
-    across the mesh, load-balancing sky-heavy vs bounce-heavy image regions
-    (measured 0.68 -> >0.97 balance on the default world).
+    streams and every per-pixel float — depend only on global (row, col),
+    so any banded or interleaved render is bitwise identical to the
+    matching rows of a whole-image render.
 
-    block_rows=32 (a 32x128-pixel tile) measured fastest across scene
-    sizes on v5e: tiles small enough that sky-heavy blocks retire bounces
-    early and frustums stay tight for cluster culling, large enough to
-    amortize per-block setup.
+    interpret=True runs the kernel on the CPU through the Pallas
+    interpreter (tests); otherwise it is compiled by Triton for the GPU.
 
     tri_clusters requires parity_plane_sign=False: the reference's
     wrong-sign plane equation (common.rs:140-141) registers hits at t values
@@ -958,95 +742,55 @@ def render_linear_pallas(sph_table, tri_table, cam_vec, *, width, height,
         raise ValueError(
             "tri_clusters culling is unsound with parity_plane_sign=True "
             "(bounce-ray hits escape vertex-derived bounds)")
+    if block_pixels & (block_pixels - 1):
+        raise ValueError(f"block_pixels={block_pixels} is not a power of 2")
     if shard_rows is None:
         shard_rows = height
-    ntx = pl.cdiv(width, LANES)
-    nty = pl.cdiv(shard_rows, block_rows)
-    nblocks = ntx * nty
-    rows_total = nblocks * block_rows
-    n_spheres = sph_table.shape[1]
-    n_tris = tri_table.shape[1]
+    npix = shard_rows * width
+    nblocks = pl.cdiv(npix, block_pixels)
+    npad = nblocks * block_pixels
 
     if sph_clusters is None:
-        sphc_b = jnp.zeros((6, 1), jnp.float32)
-        sphc_r = jnp.zeros((2, 1), jnp.int32)
+        sph_clusters = (jnp.zeros((6, 1), jnp.float32),
+                        jnp.zeros((2, 1), jnp.int32))
         n_sph_clusters = 0
     else:
-        sphc_b, sphc_r = sph_clusters
-        n_sph_clusters = sphc_b.shape[1]
+        n_sph_clusters = sph_clusters[0].shape[1]
     if tri_clusters is None:
-        tric_b = jnp.zeros((6, 1), jnp.float32)
-        tric_r = jnp.zeros((2, 1), jnp.int32)
+        tri_clusters = (jnp.zeros((6, 1), jnp.float32),
+                        jnp.zeros((2, 1), jnp.int32))
         n_tri_clusters = 0
     else:
-        tric_b, tric_r = tri_clusters
-        n_tri_clusters = tric_b.shape[1]
+        n_tri_clusters = tri_clusters[0].shape[1]
 
     kernel = _make_kernel(width, height, samples_per_pixel, depth,
-                          n_spheres, n_tris, block_rows, parity_plane_sign,
-                          count_all_lanes, n_sph_clusters, n_tri_clusters,
-                          shard_rows=shard_rows, lowp=lowp,
-                          tri_stream=stream_tops > 0,
-                          n_tri_tops=stream_tops)
-
+                          sph_table.shape[1], tri_table.shape[1],
+                          block_pixels, parity_plane_sign, n_sph_clusters,
+                          n_tri_clusters, shard_rows)
     seed_arr = jnp.stack([
         jnp.uint32(seed) * _SEED_MIX,
         jnp.asarray(row_offset, jnp.int32).astype(jnp.uint32),
         jnp.asarray(row_stride, jnp.int32).astype(jnp.uint32)])
-
-    if stream_tops > 0:
-        # streamed triangles: tri_table is the leaf-aligned HBM-resident
-        # table (ops.diff.tri_stream_table_jnp), tri_clusters the leaf
-        # AABBs + packed ranges, tri_stream the top-level (bounds, ranges)
-        trit_b, trit_r = tri_stream
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=9,
-            grid=(nblocks,),
-            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-            out_specs=pl.BlockSpec((4, block_rows, LANES),
-                                   lambda i, *prefetch: (0, i, 0),
-                                   memory_space=pltpu.VMEM),
-            scratch_shapes=[
-                pltpu.SMEM((STREAM_ROWS_PAD, STREAM_LEAF_PAD),
-                           jnp.float32),
-                pltpu.SemaphoreType.DMA(()),
-            ],
-        )
-        img = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((4, rows_total, LANES),
-                                           jnp.float32),
-            interpret=interpret,
-        )(cam_vec, sph_table, sphc_b, sphc_r, tric_b, tric_r,
-          trit_b, trit_r, seed_arr, tri_table)
-    else:
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=8,
-            grid=(nblocks,),
-            in_specs=[],
-            out_specs=pl.BlockSpec((4, block_rows, LANES),
-                                   lambda i, *prefetch: (0, i, 0),
-                                   memory_space=pltpu.VMEM),
-        )
-        img = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((4, rows_total, LANES),
-                                           jnp.float32),
-            interpret=interpret,
-        )(cam_vec, sph_table, sphc_b, sphc_r, tri_table, tric_b, tric_r,
-          seed_arr)
-
-    # un-tile: blocks are (block_rows x LANES) image tiles in row-major
-    # (ty, tx) order
-    tiles = img.reshape(4, nty, ntx, block_rows, LANES)
-    planes = tiles.transpose(0, 1, 3, 2, 4).reshape(
-        4, nty * block_rows, ntx * LANES)[:, :shard_rows, :width]
-    mean = jnp.moveaxis(planes[:3], 0, -1)
-    # per-lane counts are small ints (<= spp*depth, exact in f32); the sum
-    # may round a few ulp at very large configs — fine for rays/s accounting
-    return mean, jnp.sum(tiles[3])
+    whole = pl.BlockSpec()
+    out_block = pl.BlockSpec((block_pixels,), lambda i: (i,))
+    planes = pl.pallas_call(
+        kernel,
+        grid=(nblocks,),
+        in_specs=[whole] * 8,
+        out_specs=[out_block] * 4,
+        out_shape=[jax.ShapeDtypeStruct((npad,), jnp.float32)] * 4,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name="path_trace",
+    )(cam_vec, seed_arr, sph_table, *sph_clusters, tri_table,
+      *tri_clusters)
+    rgb = jnp.stack(planes[:3], axis=-1)[:npix]
+    # per-pixel counts are small ints (<= spp*depth, exact in f32); summed
+    # as int32, since an f32 total rounds past 2^24 segments
+    segments = jnp.sum(planes[3].astype(jnp.int32))
+    return rgb.reshape(shard_rows, width, 3), segments
 
 
 def camera_vec(camera: Camera) -> jax.Array:

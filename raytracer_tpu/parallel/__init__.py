@@ -1,4 +1,4 @@
-"""Parallel / distributed layer: device meshes, sharded rendering, multi-host.
+"""Parallel / distributed layer: device meshes, sharded rendering, multi-process.
 
 See SURVEY.md §2.4 — the reference is single-threaded; these components are
 derived from its loop structure, not its code.

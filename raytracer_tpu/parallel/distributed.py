@@ -1,10 +1,10 @@
 """Multi-host runtime glue.
 
 The reference has no communication backend at all (SURVEY.md §2.4); the
-TPU-native equivalent is JAX's built-in distributed runtime: DCN coordination
-via ``jax.distributed.initialize`` and ICI collectives inside compiled
-programs.  No custom transport is written — this module owns process
-bootstrap and mesh construction policy only.
+equivalent here is JAX's built-in distributed runtime: process coordination
+via ``jax.distributed.initialize`` and collectives inside compiled programs
+(NCCL between GPUs).  No custom transport is written — this module owns
+process bootstrap and mesh construction policy only.
 """
 
 from __future__ import annotations
@@ -26,17 +26,17 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Idempotent ``jax.distributed.initialize`` wrapper.
 
-    With no arguments, relies on the TPU environment's auto-detection (the
-    standard path on Cloud TPU pods); explicit arguments support manual
-    bring-up.  Safe to call on single-host setups: if no cluster environment
-    is detected and no coordinator is given, it is a no-op.
+    Multi-process runs pass the coordinator (``host:port``), the process
+    count and this process's id explicitly; a ``COORDINATOR_ADDRESS``
+    environment variable supplies the first.  Safe to call on single-process
+    setups: with no coordinator it is a no-op.
     """
     global _INITIALIZED
     if _INITIALIZED:
         return
-    in_cluster = any(k in os.environ for k in
-                     ("COORDINATOR_ADDRESS", "TPU_WORKER_ID", "CLOUD_TPU_TASK_ID"))
-    if coordinator_address is None and not in_cluster:
+    coordinator_address = (coordinator_address
+                           or os.environ.get("COORDINATOR_ADDRESS"))
+    if coordinator_address is None:
         return
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

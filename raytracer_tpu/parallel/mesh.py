@@ -1,12 +1,12 @@
 """Device-mesh construction.
 
 The reference has zero parallelism (one thread, SURVEY.md §2.4); the
-TPU-native scale-out axis is the ray wavefront.  A 1-D ``rays`` mesh is the
-default — the scene is tiny and replicated, pixels/samples are the sharded
-dimension, and the only collectives are the gradient psum and the stats
-reduction (both over ICI).
+scale-out axis here is the ray wavefront.  The mesh follows the algorithm:
+one 1-D ``rays`` axis — the scene is tiny and replicated, pixels are the
+sharded dimension, and the only collectives are the gradient psum and the
+stats reduction.  Cards joined all to all (NVLink) need no other shape.
 
-On multi-host slices, build the mesh AFTER ``jax.distributed.initialize()``;
+In multi-process runs, build the mesh AFTER ``jax.distributed.initialize()``;
 ``make_mesh`` uses all visible devices by default.
 """
 

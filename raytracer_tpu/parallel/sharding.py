@@ -3,11 +3,10 @@
 This is the framework's scale-out layer (SURVEY.md §2.4): the reference's
 scanline loop becomes a pixel-flat ray batch sharded over a 1-D ``rays``
 mesh with ``shard_map``.  The scene pytree is replicated (it is tiny and
-read-only in HBM), every device traces its pixel chunk independently, and the
+read-only), every device traces its pixel chunk independently, and the
 only collective in the forward pass is the stats ``psum``.  Under reverse-mode
 AD the replicated scene parameters automatically receive a gradient ``psum``
-over the same axis — the gradient all-reduce rides ICI and XLA overlaps it
-with the backward scan.
+over the same axis, which XLA hands to the collective library (NCCL on GPUs).
 
 Pixel counts that don't divide the device count are padded with dead lanes
 (``active=False`` — they trace nothing and are sliced off the result).
@@ -16,7 +15,7 @@ Pixel counts that don't divide the device count are padded with dead lanes
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import numpy as np
@@ -88,7 +87,7 @@ def _sharded_pallas_fn(mesh: Mesh, width: int, height: int,
                        samples_per_pixel: int, depth: int,
                        parity_plane_sign: bool, rows_per: int,
                        interpret: bool, has_sph_cl: bool, has_tri_cl: bool):
-    """Build (once per static config) the jitted shard_map'd megakernel.
+    """Build (once per static config) the jitted shard_map'd fused kernel.
 
     Each device runs the fused Pallas kernel on an INTERLEAVED row subset:
     device i owns global rows ``i, i+n, i+2n, ...`` (``row_offset=i``,
@@ -126,175 +125,40 @@ def _sharded_pallas_fn(mesh: Mesh, width: int, height: int,
     return run
 
 
-@functools.lru_cache(maxsize=None)
-def _sharded_stream_fn(mesh: Mesh, width: int, height: int,
-                       samples_per_pixel: int, depth: int, rows_per: int,
-                       interpret: bool, has_sph_cl: bool):
-    """shard_map'd HBM-streamed kernel: same interleaved row assignment as
-    ``_sharded_pallas_fn`` (device i owns rows i, i+n, ...)."""
-    from ..ops.pallas import wavefront_stream as ws
-
-    n = mesh.shape[RAYS_AXIS]
-    cl_spec = (P(), P()) if has_sph_cl else None
-
-    @jax.jit
-    @functools.partial(
-        shard_map, mesh=mesh,
-        in_specs=(P(), P(), P(), P(), P(), P(), P(), P(), P(), P(),
-                  cl_spec),
-        out_specs=(P(RAYS_AXIS), P()),
-        check_vma=False)
-    def run(sph, tri_hbm, leafb, leafn, topb, topr, root, cv, order_keys,
-            seed, sph_cl):
-        row0 = jax.lax.axis_index(RAYS_AXIS).astype(jnp.int32)
-        order, keys = order_keys
-        mean, segs = ws.render_linear_pallas_stream(
-            sph, tri_hbm, leafb, leafn, topb, topr, root, cv,
-            width=width, height=height,
-            samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
-            sph_clusters=sph_cl, top_order=order, top_keys=keys,
-            shard_rows=rows_per, row_offset=row0, row_stride=n,
-            interpret=interpret)
-        return mean, jax.lax.psum(segs, RAYS_AXIS)
-
-    return run
-
-
-@functools.lru_cache(maxsize=None)
-def _sharded_binned_fn(mesh: Mesh, width: int, height: int,
-                       samples_per_pixel: int, depth: int, nty_per: int,
-                       interpret: bool, has_sph_cl: bool,
-                       sample_offset: int = 0):
-    """shard_map'd BINNED per-bounce engine (VERDICT r3 item 2: the best
-    triangle engine must not silently drop to the XLA path multi-device).
-
-    Device i renders the interleaved TILE-ROW subset i, i+n, ... — the
-    binned pipeline's regroups/selection stay fully device-local (they
-    are pure optimizations), so the only collective is the segment psum
-    and the deinterleaved image is bitwise identical to a single-device
-    render of the same rows."""
-    from ..ops.pallas import wavefront_binned as wbn
-
-    n = mesh.shape[RAYS_AXIS]
-    cl_spec = (P(), P()) if has_sph_cl else None
-
-    @jax.jit
-    @functools.partial(
-        shard_map, mesh=mesh,
-        in_specs=(P(), P(), P(), P(), cl_spec),
-        out_specs=(P(RAYS_AXIS), P()),
-        check_vma=False)
-    def run(tables, cv, order_keys, seed, sph_cl):
-        ty0 = jax.lax.axis_index(RAYS_AXIS).astype(jnp.int32)
-        order, keys = order_keys
-        mean, segs = wbn.render_linear_pallas_binned(
-            *tables, cv, width=width, height=height,
-            samples_per_pixel=samples_per_pixel, depth=depth, seed=seed,
-            sample_offset=sample_offset,
-            sph_clusters=sph_cl, top_order=order, top_keys=keys,
-            ray_regroup_bounces=max(depth - 1, 0),
-            tile_row_offset=ty0, tile_row_stride=n,
-            shard_tile_rows=nty_per, interpret=interpret)
-        return mean, jax.lax.psum(segs, RAYS_AXIS)
-
-    return run
-
-
 def render_linear_sharded_fast(scene: Scene, camera: Camera, *, mesh: Mesh,
                                width: int, height: int,
                                samples_per_pixel: int, depth: int,
                                parity_plane_sign: bool | None = None,
                                seed: int = 0, engine: str = "auto",
                                interpret: bool = False):
-    """Sharded render through the fastest engine (VERDICT round-1 item 1).
-
-    engine "auto" picks the fused Pallas megakernel when it fits, the
-    HBM-streamed kernel for big triangle scenes (corrected plane sign),
-    else the XLA wavefront path.  ``parity_plane_sign=None`` resolves per
-    scene (ops.resolve_dispatch).  Returns (mean radiance [H, W, 3],
-    segment count).  The Pallas paths are forward-only; for gradients use
-    ``render_linear_sharded`` (engine="xla").
+    """Sharded render through the dispatched engine (ops.resolve_dispatch):
+    the fused kernel per device on the GPU, else the XLA wavefront path.
+    ``parity_plane_sign=None`` resolves per scene.  Returns (mean radiance
+    [H, W, 3], segment count).  The kernel path is forward-only; for
+    gradients use ``render_linear_sharded`` or
+    ``render_linear_diff_sharded``.
     """
     from .. import ops as ops_mod
     engine, parity_plane_sign, warning = ops_mod.resolve_dispatch(
-        scene, parity_plane_sign, engine,
-        samples_per_pixel=samples_per_pixel, width=width, height=height)
-    if engine == "pallas_sorted":
-        # the sorted engine's multi-device form IS the binned engine
-        # (same tables, same physics, shardable tile rows)
-        engine = ("pallas_binned"
-                  if ops_mod.binned_spp_ok(samples_per_pixel, width,
-                                           height)
-                  else "pallas_stream")
+        scene, parity_plane_sign, engine, interpret=interpret)
     if warning is not None:
         import warnings
         warnings.warn(warning, stacklevel=2)
-    if engine == "pallas_stream" and parity_plane_sign:
-        raise ValueError("pallas_stream requires parity_plane_sign=False "
-                         "(bound culling soundness)")
-    if engine not in ("pallas", "pallas_stream", "pallas_binned"):
+    if engine == "xla":
         return render_linear_sharded(
             scene, camera, mesh=mesh, width=width, height=height,
             samples_per_pixel=samples_per_pixel, depth=depth,
             parity_plane_sign=parity_plane_sign, seed=seed)
     from ..ops.pallas import wavefront as wf
-    cv = wf.camera_vec(camera)
     n = mesh.shape[RAYS_AXIS]
     rows_per = pad_to_multiple(height, n) // n
-    if engine == "pallas_binned":
-        from ..ops.pallas import wavefront_binned as wbn
-        from ..ops.pallas.wavefront_stream import sorted_top_order
-        (sph, sph_cl, *sorted_t) = ops_mod.scene_sorted_tables(scene)
-        order, keys = sorted_top_order(np.asarray(sorted_t[4]),
-                                       np.asarray(camera.origin))
-        # non-power-of-two spp renders as power-of-two sub-renders on the
-        # GLOBAL sample index, exactly like the single-device path
-        # (ops._binned_spp_parts); the summed shards stay bitwise equal
-        # to the single-device parts decomposition
-        total = None
-        seg_total = None
-        offset = 0
-        for part in ops_mod._binned_spp_parts(samples_per_pixel):
-            tw, th, ntx, nty, _ = wbn.tile_geometry(width, height, part,
-                                                    16)
-            nty_per = pad_to_multiple(nty, n) // n
-            run = _sharded_binned_fn(mesh, width, height, part,
-                                     depth, nty_per, interpret,
-                                     sph_cl is not None,
-                                     sample_offset=offset)
-            mean, segs = run((sph,) + tuple(sorted_t), cv,
-                             (jnp.asarray(order), jnp.asarray(keys)),
-                             jnp.uint32(seed), sph_cl)
-            # deinterleave tile rows: device i's row block k holds global
-            # tile row k*n + i
-            mean = mean.reshape(n, nty_per, th, width, 3).transpose(
-                1, 0, 2, 3, 4)
-            mean = mean.reshape(n * nty_per * th, width, 3)[:height]
-            piece = mean * jnp.float32(part)
-            total = piece if total is None else total + piece
-            seg_total = segs if seg_total is None else seg_total + segs
-            offset += part
-        return total * (1.0 / samples_per_pixel), seg_total
-    if engine == "pallas_stream":
-        from ..ops.pallas import wavefront_stream as ws
-        (sph, sph_cl, tri_hbm, leafb, leafn,
-         topb, topr, root) = ops_mod.scene_stream_tables(scene)
-        order, keys = ws.sorted_top_order(np.asarray(topb),
-                                          np.asarray(camera.origin))
-        run = _sharded_stream_fn(mesh, width, height, samples_per_pixel,
-                                 depth, rows_per, interpret,
-                                 sph_cl is not None)
-        mean, segs = run(sph, tri_hbm, leafb, leafn, topb, topr, root, cv,
-                         (jnp.asarray(order), jnp.asarray(keys)),
-                         jnp.uint32(seed), sph_cl)
-    else:
-        sph, tri, sph_cl, tri_cl = ops_mod.scene_tables(scene,
-                                                        parity_plane_sign)
-        run = _sharded_pallas_fn(mesh, width, height, samples_per_pixel,
-                                 depth, parity_plane_sign, rows_per,
-                                 interpret, sph_cl is not None,
-                                 tri_cl is not None)
-        mean, segs = run(sph, tri, cv, jnp.uint32(seed), sph_cl, tri_cl)
+    sph, tri, sph_cl, tri_cl = ops_mod.scene_tables(scene, parity_plane_sign)
+    run = _sharded_pallas_fn(mesh, width, height, samples_per_pixel,
+                             depth, parity_plane_sign, rows_per,
+                             interpret, sph_cl is not None,
+                             tri_cl is not None)
+    mean, segs = run(sph, tri, wf.camera_vec(camera), jnp.uint32(seed),
+                     sph_cl, tri_cl)
     # deinterleave: gathered row i*rows_per + k holds global row k*n + i
     mean = mean.reshape(n, rows_per, width, 3).transpose(1, 0, 2, 3)
     return mean.reshape(n * rows_per, width, 3)[:height], segs
@@ -303,14 +167,13 @@ def render_linear_sharded_fast(scene: Scene, camera: Camera, *, mesh: Mesh,
 @functools.lru_cache(maxsize=None)
 def _sharded_diff_fn(mesh: Mesh, statics):
     """Build (once per static config) the shard_map'd DIFFERENTIABLE
-    kernel renderer: fused Pallas forward + hand-derived Pallas backward
-    per device, with the same interleaved row assignment as
+    kernel renderer: fused kernel forward + XLA recompute backward per
+    device, with the same interleaved row assignment as
     ``_sharded_pallas_fn`` (device i owns global rows i, i+n, ...).
 
     Because the scene/camera enter replicated (in_specs P()), reverse-mode
     AD through the shard_map automatically psums their cotangents over the
-    rays axis — the gradient all-reduce rides ICI and a sharded TRAIN step
-    now runs at kernel speed forward AND backward (VERDICT r2 item 4).
+    rays axis.
     """
     from ..ops import diff as diff_mod
 
@@ -332,21 +195,19 @@ def render_linear_diff_sharded(scene: Scene, camera: Camera, *, mesh: Mesh,
                                samples_per_pixel: int, depth: int,
                                seed: int = 0,
                                parity_plane_sign: bool = True,
-                               interpret: bool = False,
-                               bwd_engine: str = "pallas",
-                               tri_cull=None):
-    """Differentiable sharded render at kernel speed (forward + backward).
+                               interpret: bool = False, tri_cull=None):
+    """Differentiable sharded render through the kernel forward.
 
     Returns the mean linear radiance [H, W, 3]; differentiable w.r.t.
     scene arrays and camera with automatic gradient psum over the mesh.
-    Callers should check ``ops.diff.bwd_kernel_eligible`` before picking
-    bwd_engine="pallas" (the "xla" recompute backward also shards).
     """
+    from ..ops import diff as diff_mod
     n = mesh.shape[RAYS_AXIS]
     rows_per = pad_to_multiple(height, n) // n
-    statics = (width, height, samples_per_pixel, depth, seed,
-               parity_plane_sign, interpret, bwd_engine, rows_per,
-               tri_cull)
+    statics = diff_mod.make_statics(
+        width=width, height=height, samples_per_pixel=samples_per_pixel,
+        depth=depth, seed=seed, parity_plane_sign=parity_plane_sign,
+        interpret=interpret, shard_rows=rows_per, tri_cull=tri_cull)
     mean = _sharded_diff_fn(mesh, statics)(scene, camera)
     # deinterleave: gathered row i*rows_per + k holds global row k*n + i
     mean = mean.reshape(n, rows_per, width, 3).transpose(1, 0, 2, 3)

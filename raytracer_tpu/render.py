@@ -2,7 +2,7 @@
 
 The reference's render core is four nested scalar loops — scanline, column,
 sample, bounce (``/root/reference/raytracer/src/common.rs:320-361``) with the
-per-ray bounce loop in ``ray_color`` (common.rs:263-285).  The TPU-native
+per-ray bounce loop in ``ray_color`` (common.rs:263-285).  The array
 redesign inverts the nesting: ALL pixels' rays for one sample form a single
 wavefront batch, the bounce loop is a fixed-depth ``lax.scan`` over that
 batch's live state, and the sample loop is an outer ``lax.scan`` that

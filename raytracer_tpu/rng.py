@@ -3,7 +3,7 @@
 The reference uses ONE sequential xorshift32 stream (seed 2547549) consumed in
 raster order (``/root/reference/raytracer/src/random.rs:8-30``, instantiated
 once per render at ``common.rs:321``).  A sequential stream is the opposite of
-what a TPU wants, so this framework has two generators:
+what a data-parallel device wants, so this framework has two generators:
 
 1. ``xorshift32`` / ``XorShift32`` — an exact uint32 port of the reference
    stream.  Used by the NumPy oracle and by the sequential *parity renderer*
@@ -12,7 +12,7 @@ what a TPU wants, so this framework has two generators:
 
 2. ``pcg3d`` — a counter-based hash RNG for the fast wavefront path: each
    (pixel, sample, bounce) gets an independent stream with NO sequential
-   dependency, so a million rays draw in parallel on the VPU.  This replaces
+   dependency, so a million rays draw in parallel.  This replaces
    the *mechanism* of random.rs while keeping its contract (deterministic,
    seedable, uniform in [0, 1]).  pcg3d is the public-domain hash of
    Jarzynski & Olano, "Hash Functions for GPU Rendering", JCGT 2020.
@@ -94,7 +94,7 @@ class XorShift32:
 def pcg3d(v0, v1, v2):
     """pcg3d hash: 3x uint32 counters -> 3x uint32 random words.
 
-    Pure VPU integer ops, no cross-lane dependencies.
+    Pure elementwise uint32 ops, no cross-ray dependencies.
     """
     x = jnp.asarray(v0, jnp.uint32)
     y = jnp.asarray(v1, jnp.uint32)
@@ -119,10 +119,9 @@ def pcg3d(v0, v1, v2):
 def random_f32_from_bits24(bits):
     """[0, 1] from the TOP 24 bits: (bits >> 8) / (2^24 - 1).
 
-    Used by the counter-based fast path (not the parity path): TPU Pallas
-    has no uint32->f32 cast, but the 24-bit value fits int32 exactly, and
-    this identical formulation keeps the XLA and Pallas renderers
-    bit-consistent with each other.
+    Used by the counter-based fast path (not the parity path) in both the
+    XLA renderer and the fused kernel, which keeps their streams
+    bit-identical.  The 24-bit value fits int32 exactly.
     """
     b24 = jax.lax.shift_right_logical(jnp.asarray(bits, jnp.uint32),
                                       jnp.uint32(8))

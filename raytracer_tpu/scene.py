@@ -2,11 +2,11 @@
 
 The reference stores an array-of-structs world — ``Vec<Sphere>`` each carrying
 its material (``/root/reference/raytracer/src/common.rs:53-58,227-230``).  The
-TPU-native layout is the SoA split the reference author sketched in
+layout here is the SoA split the reference author sketched in
 ``raytracer/TODO.txt:24-41``: primitive geometry in dense arrays (one array per
 field) with integer material ids into a separate material table, so the
-intersect inner loop streams contiguous f32 planes through the VPU/MXU and the
-whole scene is one replicated pytree in HBM.
+intersect inner loop streams contiguous f32 planes and the whole scene is one
+replicated pytree in device memory.
 
 Materials are a 4-way enum in the reference (materials.rs:7-12); here a
 material is a row in a table: kind code + rgb color + fuzz + ir.

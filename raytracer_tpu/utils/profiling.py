@@ -2,7 +2,7 @@
 
 The reference's only instrumentation is a scanline progress line behind
 ``Options.logger`` (common.rs:292,328-330) and an offline criterion bench.
-For a TPU framework whose north-star metric is rays/sec/chip, profiling is
+For a renderer whose headline metric is traced segments per second, profiling is
 first-class (SURVEY.md §5): jax.profiler trace capture plus rays/s counters
 derived from the renderer's on-device segment counts.
 """

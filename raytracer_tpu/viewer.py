@@ -3,7 +3,7 @@
 The reference's L6 is a Swift/Cocoa app with a custom event loop: WASD/space/
 shift keypresses move the camera and trigger a synchronous re-render that is
 blitted to the window (``/root/reference/MacOSPlatform/MacOSPlatform/
-GameView.swift:16-27,198-219,323-334``).  The TPU-native analog is this
+GameView.swift:16-27,198-219,323-334``).  The analog here is this
 terminal app: the same key bindings drive ``move_camera_position`` over a
 RenderSession, and the framebuffer is blitted as ANSI 24-bit half-block
 cells (two pixels per character cell).

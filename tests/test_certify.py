@@ -1,9 +1,9 @@
-"""Full-scale BASELINE certification pins (VERDICT r5 item 5).
+"""Full-scale BASELINE certification pins.
 
 The committed CERTIFY.json records the agreement of the native C++
-parity engine and the TPU fast engine on the BASELINE target config
+parity engine and the GPU fast path on the BASELINE target config
 (512x512, 64 spp, 8 bounces) — scripts/certify_fullscale.py regenerates
-it on TPU hardware.  These tests (a) pin the committed artifact's
+it on the card.  These tests (a) pin the committed artifact's
 acceptance thresholds and (b) re-verify a DOWNSAMPLED tile of the same
 workload shape (depth 8, reference world) bit-exactly across all three
 independent implementations: NumPy oracle, sequential-parity JAX
@@ -35,6 +35,9 @@ def test_certify_artifact_within_thresholds():
     assert report["psnr_db"] > 30.0
     assert report["mean_abs_diff_u8"] < 4.0
     assert len(report["native_parity_sha256"]) == 64
+    # regenerated on the card, which it names
+    assert report["device"]["platform"] == "gpu"
+    assert report["card"].startswith(report["device"]["kind"])
 
 
 @pytest.mark.skipif(not HAVE_NATIVE, reason="native library unavailable")

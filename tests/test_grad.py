@@ -230,9 +230,9 @@ class TestDiffPallasPath:
 
 
 class TestBackwardKernel:
-    """Hand-derived backward Pallas kernel (ops/pallas/wavefront_bwd.py):
-    the full path-trace adjoint must match XLA reverse-mode AD on every
-    parameter class (interior gradients; both engines share the follow-the-
+    """The kernel path's custom VJP (kernel forward, XLA recompute
+    backward, ops/diff.py) must match plain XLA reverse-mode AD on every
+    parameter class (interior gradients; both share the follow-the-
     selected-branch semantics)."""
 
     def test_grads_match_xla_ad_all_materials(self):
@@ -251,8 +251,6 @@ class TestBackwardKernel:
         loss_k = gradmod.make_loss_fn(scene, cam, target, width=W, height=H,
                                       samples_per_pixel=2, depth=4, seed=3,
                                       engine="pallas", interpret=True)
-        from raytracer_tpu.ops import diff as diff_mod
-        assert diff_mod.bwd_kernel_eligible(scene)
         v1, g1 = jax.value_and_grad(loss_x)(params)
         v2, g2 = jax.jit(jax.value_and_grad(loss_k))(params)
         assert abs(float(v1) - float(v2)) < 1e-5
@@ -267,16 +265,23 @@ class TestBackwardKernel:
         world = rt.models.sphere_and_ground()
         scene, cam = world.to_scene(), world.to_camera()
         W, H = 16, 12
-        statics = (W, H, 2, 3, 7, True, True, "pallas")
-        statics_x = (W, H, 2, 3, 7, True, True, "xla")
         from raytracer_tpu.ops import diff as diff_mod
+        statics = diff_mod.make_statics(width=W, height=H,
+                                        samples_per_pixel=2, depth=3, seed=7,
+                                        parity_plane_sign=True,
+                                        interpret=True)
 
-        def loss(c, st):
-            img = diff_mod.render_linear_diff(scene, c, st)
+        def loss_k(c):
+            img = diff_mod.render_linear_diff(scene, c, statics)
             return jnp.sum(img * img)
 
-        g_k = jax.grad(lambda c: loss(c, statics))(cam)
-        g_x = jax.grad(lambda c: loss(c, statics_x))(cam)
+        def loss_x(c):
+            img, _ = rt.render_linear(scene, c, width=W, height=H,
+                                      samples_per_pixel=2, depth=3, seed=7)
+            return jnp.sum(img * img)
+
+        g_k = jax.grad(loss_k)(cam)
+        g_x = jax.grad(loss_x)(cam)
         for f in ("origin", "lower_left_corner", "horizontal", "vertical"):
             a = np.asarray(getattr(g_x, f))
             b = np.asarray(getattr(g_k, f))
@@ -284,11 +289,9 @@ class TestBackwardKernel:
             assert np.abs(a - b).max() <= 5e-3 * scale + 1e-7, f
 
     def test_triangle_grads_match_xla_ad(self, ffi_world):
-        # VERDICT r2 item 2: the kernel backward must cover triangle
-        # scenes — vertex gradients chain through pack_triangles_jnp's VJP
+        # vertex gradients through the kernel path's custom VJP on a
+        # triangle scene
         scene, cam = ffi_world.to_scene(), ffi_world.to_camera()
-        from raytracer_tpu.ops import diff as diff_mod
-        assert diff_mod.bwd_kernel_eligible(scene)
         W, H = 24, 16
         target, _ = rt.render_linear(scene, cam, width=W, height=H,
                                      samples_per_pixel=2, depth=3, seed=11)
@@ -313,8 +316,6 @@ class TestBackwardKernel:
         # same comparison under the CORRECT plane equation (the OBJ /
         # procedural-mesh configuration) — exercises the other t-adjoint
         scene, cam = rt.models.mesh_scene(subdivisions=0)
-        from raytracer_tpu.ops import diff as diff_mod
-        assert diff_mod.bwd_kernel_eligible(scene)
         W, H = 16, 12
         target, _ = rt.render_linear(scene, cam, width=W, height=H,
                                      samples_per_pixel=1, depth=2, seed=2,
@@ -338,9 +339,8 @@ class TestBackwardKernel:
             assert np.abs(a - b).max() <= 5e-3 * scale + 1e-7, k
 
     def test_clustered_kernel_grads_match_xla_ad(self):
-        # VERDICT r3 item 3: the differentiable kernel path must cull —
-        # static cluster topology with bounds recomputed traceably from
-        # the live vertices.  Gradients must match XLA AD and the
+        # the differentiable kernel path culls: static cluster topology
+        # with bounds recomputed traceably from the live vertices.  Gradients must match XLA AD and the
         # unclustered kernel on a mesh scene big enough to trigger
         # clustering (>= 64 triangles).
         scene, cam = rt.models.mesh_scene(subdivisions=2)
@@ -371,37 +371,6 @@ class TestBackwardKernel:
             scale = max(np.abs(a).max(), 1e-8)
             assert np.abs(a - b).max() <= 5e-3 * scale + 1e-7, k
 
-    def test_streamed_kernel_grads_match_xla_ad(self, monkeypatch):
-        # VERDICT r5 item 3: beyond-SMEM scenes keep kernel fwd+bwd via
-        # the HBM-streamed leaf-aligned triangle layout.  Force the
-        # streamed path on a small mesh (the layout is size-agnostic) and
-        # check value+grads against XLA AD.
-        scene, cam = rt.models.mesh_scene(subdivisions=2)
-        from raytracer_tpu.ops import diff as diff_mod
-        monkeypatch.setattr(diff_mod, "_needs_stream", lambda s: True)
-        W, H = 24, 16
-        target, _ = rt.render_linear(scene, cam, width=W, height=H,
-                                     samples_per_pixel=2, depth=3, seed=5,
-                                     parity_plane_sign=False)
-        params = gradmod.extract_params(scene, ["tri_v0", "mat_color"])
-        params["tri_v0"] = params["tri_v0"] + 0.004
-        loss_x = gradmod.make_loss_fn(scene, cam, target, width=W,
-                                      height=H, samples_per_pixel=2,
-                                      depth=3, seed=5,
-                                      parity_plane_sign=False)
-        loss_s = gradmod.make_loss_fn(scene, cam, target, width=W,
-                                      height=H, samples_per_pixel=2,
-                                      depth=3, seed=5,
-                                      parity_plane_sign=False,
-                                      engine="pallas", interpret=True)
-        v1, g1 = jax.value_and_grad(loss_x)(params)
-        v2, g2 = jax.jit(jax.value_and_grad(loss_s))(params)
-        assert abs(float(v1) - float(v2)) < 1e-5
-        for k in params:
-            a, b = np.asarray(g1[k]), np.asarray(g2[k])
-            scale = max(np.abs(a).max(), 1e-8)
-            assert np.abs(a - b).max() <= 5e-3 * scale + 1e-7, k
-
     def test_cull_bounds_follow_moved_vertices(self):
         # the cull topology is static but the bounds are traceable: moving
         # a vertex far away must inflate its leaf bound (stay sound)
@@ -417,23 +386,6 @@ class TestBackwardKernel:
         leaf = int(cull.leaf_ids[np.nonzero(
             np.asarray(cull.perm) == 0)[0][0]])
         assert b1[3, leaf] > b0[3, leaf] + 1.0   # r^2 grew to cover it
-
-    def test_obj_scene_runs_kernel_backward(self):
-        # VERDICT r2 item 2 "done" bar: inverse rendering of the OBJ scene
-        # runs the kernel backward (10k tris — over the old gates)
-        scene, cam = rt.models.obj_mesh_scene()
-        from raytracer_tpu.ops import diff as diff_mod
-        assert diff_mod.bwd_kernel_eligible(scene)
-
-    def test_oversize_scene_falls_back(self):
-        # >10.5k tris exceeds the SMEM table budget -> XLA backward
-        from raytracer_tpu.models.builders import icosphere_mesh
-        from raytracer_tpu.scene import build_materials, build_scene, DIFFUSE
-        tris = icosphere_mesh((0.0, 0.0, -1.2), 0.5, 0, 5)  # 20480 tris
-        mats = build_materials([(DIFFUSE, (0.7, 0.3, 0.3), 0.0, 1.0)])
-        scene = build_scene([], tris, mats, exact_planes=True)
-        from raytracer_tpu.ops import diff as diff_mod
-        assert not diff_mod.bwd_kernel_eligible(scene)
 
 
 class TestSilhouetteGradients:

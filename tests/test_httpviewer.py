@@ -124,9 +124,10 @@ class TestProgressiveAccumulation:
 
 
 class TestMeshSceneViewer:
-    """VERDICT r3 item 8: an OBJ-scale mesh scene in the interactive
-    viewer must ride the auto-dispatched binned engine (not silently fall
-    back), with progressive refinement over a live socket."""
+    """An OBJ-scale mesh scene in the interactive viewer must ride the
+    auto-dispatched fused kernel on the GPU (not silently fall back), with
+    progressive refinement over a live socket.  The test keeps its old
+    name from when that engine was a binned one."""
 
     def test_mesh_session_resolves_binned_and_refines(self):
         import raytracer_tpu as rt
@@ -144,11 +145,10 @@ class TestMeshSceneViewer:
             scene, cam, 32, 18,
             Options(samples_per_pixel=1, max_ray_bounces=2),
             progressive=True, max_samples=3)
-        # on a TPU backend auto-dispatch picks the binned per-bounce
-        # engine for this scene + spp; spp that the engine cannot tile
-        # falls back to sorted
-        assert session.resolved_engine(tpu=True) == "pallas_binned"
-        assert session.resolved_engine(tpu=False) == "xla"
+        # on a GPU auto-dispatch picks the fused kernel for this scene;
+        # elsewhere the XLA wavefront
+        assert session.resolved_engine(gpu=True) == "pallas"
+        assert session.resolved_engine(gpu=False) == "xla"
 
         httpd = httpviewer.make_server(session, port=0)
         t = threading.Thread(target=httpd.serve_forever, daemon=True)

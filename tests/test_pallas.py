@@ -1,6 +1,6 @@
-"""Pallas megakernel tests (interpreter mode — runs on the CPU test harness;
-the compiled-TPU path is exercised by bench.py / scripts/test_pallas_tpu.py
-on hardware)."""
+"""Fused kernel tests (interpreter mode — runs on the CPU test harness;
+the compiled GPU kernel is exercised by tests/test_gpu.py and
+chip_smoke.py on the card)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -22,7 +22,7 @@ class TestKernelInterpret:
         scene, cam, sph, tri, cv = _tables(default_world)
         img, segs = wf.render_linear_pallas(
             sph, tri, cv, width=16, height=8, samples_per_pixel=2, depth=3,
-            block_rows=8, interpret=True)
+            block_pixels=32, interpret=True)
         ref, segr = rt.render_linear(scene, cam, width=16, height=8,
                                      samples_per_pixel=2, depth=3)
         np.testing.assert_allclose(np.asarray(img), np.asarray(ref),
@@ -33,7 +33,7 @@ class TestKernelInterpret:
         scene, cam, sph, tri, cv = _tables(ffi_world)
         img, segs = wf.render_linear_pallas(
             sph, tri, cv, width=16, height=16, samples_per_pixel=1, depth=3,
-            block_rows=8, interpret=True)
+            block_pixels=32, interpret=True)
         ref, segr = rt.render_linear(scene, cam, width=16, height=16,
                                      samples_per_pixel=1, depth=3)
         np.testing.assert_allclose(np.asarray(img), np.asarray(ref),
@@ -41,11 +41,11 @@ class TestKernelInterpret:
         assert float(segs) == float(segr)
 
     def test_nondivisible_pixels_padded(self, default_world):
-        # 13x7 = 91 pixels << one 8x128 block: padding lanes must be inert
+        # 13x7 = 91 pixels < one 128-pixel block: padding pixels are inert
         scene, cam, sph, tri, cv = _tables(default_world)
         img, _ = wf.render_linear_pallas(
             sph, tri, cv, width=13, height=7, samples_per_pixel=1, depth=2,
-            block_rows=8, interpret=True)
+            block_pixels=128, interpret=True)
         ref, _ = rt.render_linear(scene, cam, width=13, height=7,
                                   samples_per_pixel=1, depth=2)
         np.testing.assert_allclose(np.asarray(img), np.asarray(ref),
@@ -63,12 +63,12 @@ class TestClusterCulling:
         tri = jnp.asarray(wf.pack_triangles(scene))
         flat, segf = wf.render_linear_pallas(
             sph, tri, cv, width=24, height=16, samples_per_pixel=1, depth=3,
-            block_rows=8, interpret=True)
+            block_pixels=32, interpret=True)
         perm, b, rg = wf.cluster_spheres(scene, leaf_target=16)
         sph_p = jnp.asarray(wf.pack_spheres(scene, perm=perm))
         clus, segc = wf.render_linear_pallas(
             sph_p, tri, cv, width=24, height=16, samples_per_pixel=1,
-            depth=3, block_rows=8, interpret=True,
+            depth=3, block_pixels=32, interpret=True,
             sph_clusters=(jnp.asarray(b), jnp.asarray(rg)))
         np.testing.assert_array_equal(np.asarray(flat), np.asarray(clus))
         assert float(segf) == float(segc)
@@ -80,12 +80,12 @@ class TestClusterCulling:
         tri = jnp.asarray(wf.pack_triangles(scene))
         flat, _ = wf.render_linear_pallas(
             sph, tri, cv, width=24, height=16, samples_per_pixel=1, depth=3,
-            block_rows=8, interpret=True, parity_plane_sign=False)
+            block_pixels=32, interpret=True, parity_plane_sign=False)
         perm, b, rg = wf.cluster_triangles(scene, leaf_target=24)
         tri_p = jnp.asarray(wf.pack_triangles(scene, perm=perm))
         clus, _ = wf.render_linear_pallas(
             sph, tri_p, cv, width=24, height=16, samples_per_pixel=1,
-            depth=3, block_rows=8, interpret=True, parity_plane_sign=False,
+            depth=3, block_pixels=32, interpret=True, parity_plane_sign=False,
             tri_clusters=(jnp.asarray(b), jnp.asarray(rg)))
         np.testing.assert_array_equal(np.asarray(flat), np.asarray(clus))
 
@@ -98,7 +98,7 @@ class TestClusterCulling:
         with pytest.raises(ValueError, match="parity_plane_sign"):
             wf.render_linear_pallas(
                 sph, tri_p, cv, width=8, height=8, samples_per_pixel=1,
-                depth=2, block_rows=8, interpret=True,
+                depth=2, block_pixels=32, interpret=True,
                 parity_plane_sign=True,
                 tri_clusters=(jnp.asarray(b), jnp.asarray(rg)))
 
@@ -144,7 +144,7 @@ class TestSceneTables:
 class TestEngineDispatch:
     def test_auto_on_cpu_uses_xla(self, default_world):
         from raytracer_tpu import ops as ops_mod
-        assert not ops_mod.backend_is_tpu()
+        assert not ops_mod.backend_is_gpu()
         scene = default_world.to_scene()
         cam = default_world.to_camera()
         img, segs = ops_mod.render_linear_fast(
@@ -214,51 +214,37 @@ class TestNegativeRadius:
                                    np.asarray(h2.normal)[hit], atol=1e-5)
 
 
-class TestLowPrecisionIntersect:
-    """bf16 sphere-intersect variant — the reduced-precision experiment
-    (fp_vec.rs analog; PERFSTUDY "lowp" study)."""
+class TestCudaLowering:
+    """The kernel lowers through Pallas's Triton route for the GPU on the
+    CPU harness (cross-platform lowering): every primitive the kernel uses
+    must have a Triton lowering rule.  Compiling the Triton IR to PTX needs
+    the card (tests/test_gpu.py)."""
 
-    def test_bf16_close_to_f32(self, default_world):
-        scene = default_world.to_scene()
-        cam = default_world.to_camera()
-        sph = jnp.asarray(wf.pack_spheres(scene))
-        tri = jnp.asarray(wf.pack_triangles(scene))
-        cv = wf.camera_vec(cam)
-        kw = dict(width=48, height=32, samples_per_pixel=2, depth=4,
-                  block_rows=8, interpret=True)
-        f32, seg_a = wf.render_linear_pallas(sph, tri, cv, **kw)
-        b16, seg_b = wf.render_linear_pallas(sph, tri, cv, lowp=True, **kw)
-        a, b = np.asarray(f32), np.asarray(b16)
-        assert np.isfinite(b).all()
-        # the study's finding: bf16's ~3 significant digits survive on
-        # unit-scale spheres but the giant ground sphere's |oc|^2 - r^2
-        # cancels catastrophically (~1e4 - 1e4), so the default world
-        # degrades hard — that measured cliff is WHY f32 stays the
-        # production dtype (PERFSTUDY "lowp" decision)
-        mse = float(np.mean((a - b) ** 2))
-        peak = float(max(a.max(), 1e-6))
-        psnr = 10.0 * np.log10(peak * peak / max(mse, 1e-20))
-        assert psnr > 8.0, psnr
-        assert abs(int(seg_a) - int(seg_b)) < 0.25 * int(seg_a)
+    @pytest.mark.parametrize("name,pps", [("default_world", True),
+                                          ("random_spheres", False),
+                                          ("mesh", False), ("mesh", True)])
+    def test_lowers_to_one_triton_call(self, name, pps):
+        import jax
+        from raytracer_tpu import ops as ops_mod
+        if name == "default_world":
+            w = rt.models.default_world()
+            scene, cam = w.to_scene(), w.to_camera()
+        elif name == "random_spheres":
+            scene, cam = rt.models.random_spheres(n=96, seed=1)
+        else:
+            scene, cam = rt.models.mesh_scene(subdivisions=2)
+        sph, tri, scl, tcl = ops_mod.scene_tables(scene, pps)
+        assert (scl is not None) == (name == "random_spheres")
+        assert (tcl is not None) == (name == "mesh" and not pps)
 
-    def test_bf16_tracks_f32_on_unit_scale_scene(self):
-        # no giant spheres -> no cancellation -> bf16 tracks f32 closely
-        w = rt.parse_input(
-            "camera origin 0.0 0.0 0.0 aspect 1.0;\n"
-            "material M : Metal color 0.9 0.8 0.7 fuzz 0.1;\n"
-            "material D : Diffuse color 0.4 0.6 0.3;\n"
-            "sphere center -0.6 0.0 -1.6 radius 0.5 material M;\n"
-            "sphere center 0.6 0.1 -1.4 radius 0.45 material D;\n")
-        scene, cam = w.to_scene(), w.to_camera()
-        sph = jnp.asarray(wf.pack_spheres(scene))
-        tri = jnp.asarray(wf.pack_triangles(scene))
-        cv = wf.camera_vec(cam)
-        kw = dict(width=48, height=32, samples_per_pixel=2, depth=4,
-                  block_rows=8, interpret=True)
-        f32, _ = wf.render_linear_pallas(sph, tri, cv, **kw)
-        b16, _ = wf.render_linear_pallas(sph, tri, cv, lowp=True, **kw)
-        a, b = np.asarray(f32), np.asarray(b16)
-        mse = float(np.mean((a - b) ** 2))
-        peak = float(max(a.max(), 1e-6))
-        psnr = 10.0 * np.log10(peak * peak / max(mse, 1e-20))
-        assert psnr > 22.0, psnr
+        def render(s, t, c, sc, tc):
+            return wf.render_linear_pallas(
+                s, t, c, width=40, height=20, samples_per_pixel=2, depth=3,
+                block_pixels=128, parity_plane_sign=pps, sph_clusters=sc,
+                tri_clusters=tc)
+
+        text = jax.jit(render).trace(
+            sph, tri, wf.camera_vec(cam), scl, tcl).lower(
+                lowering_platforms=("cuda",)).as_text()
+        assert text.count("custom_call @__gpu$xla.gpu.triton") == 1
+        assert "grid_x = 7 : i32" in text      # ceil(40 * 20 / 128)

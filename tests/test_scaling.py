@@ -1,7 +1,6 @@
 """Scaling-efficiency assertions on the 8-virtual-device mesh.
 
-BASELINE targets >=85% multi-host scaling efficiency.  Real multi-chip
-hardware is unreachable in CI, but the sharded step's wall clock is
+Multi-card hardware is unreachable in CI, but the sharded step's wall clock is
 ``max_i T(device_i)`` + one scalar psum (the image stays sharded, the
 scene is replicated — parallel/sharding.py), so the per-device WORK
 division is the dominant efficiency term and is exactly measurable here:
@@ -10,7 +9,7 @@ division is the dominant efficiency term and is exactly measurable here:
 These tests pin the property that makes the target reachable: the shipped
 INTERLEAVED pixel/row assignment keeps per-device work within 85% balance
 on the default world, where contiguous bands measurably do not (0.68).
-Real-chip timing evidence lives in SCALING.json (scripts/scaling_bench.py).
+Timing on four cards: ``python chip_smoke.py --four-cards``.
 """
 
 import jax.numpy as jnp

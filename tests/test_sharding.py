@@ -73,10 +73,10 @@ class TestShardedRender:
 
 
 class TestShardedPallas:
-    """The fused megakernel under shard_map (VERDICT round-1 item 1): every
-    device runs the Pallas kernel (interpret mode on CPU) on its own row
-    band; the gathered image must be bitwise identical to the single-device
-    kernel render and the segment psum must match exactly."""
+    """The fused kernel under shard_map: every device runs the kernel
+    (interpret mode on CPU) on its own interleaved rows; the gathered image
+    must be bitwise identical to the single-device kernel render and the
+    segment psum must match exactly."""
 
     def test_sharded_kernel_bitwise_equal(self, default_world, mesh8):
         from raytracer_tpu import ops as ops_mod
@@ -113,55 +113,22 @@ class TestShardedPallas:
         assert np.array_equal(np.asarray(ref), np.asarray(out))
         assert int(seg_ref) == int(seg)
 
-    def test_sharded_binned_engine_bitwise_equal(self, mesh8):
-        # VERDICT r3 item 2: the fast triangle engine must shard.  Every
-        # device runs the binned per-bounce pipeline on its interleaved
-        # tile-row subset; the deinterleaved image must be bitwise equal
-        # to the single-device binned render.
+    @pytest.mark.parametrize("W,H", [(64, 48), (48, 37)])
+    def test_sharded_kernel_mesh_culling_bitwise_equal(self, mesh8, W, H):
+        # exact-plane mesh: triangle cluster culling on every device;
+        # heights that don't divide the device count pad with dead rows
         from raytracer_tpu import ops as ops_mod
         from raytracer_tpu.ops.pallas import wavefront as wf
-        from raytracer_tpu.ops.pallas import wavefront_binned as wbn
-        from raytracer_tpu.ops.pallas.wavefront_stream import \
-            sorted_top_order
         scene, cam = rt.models.mesh_scene(subdivisions=2)
-        W, H, SPP, D = 64, 48, 2, 3
-        (sph, sph_cl, *sorted_t) = ops_mod.scene_sorted_tables(scene)
-        order, keys = sorted_top_order(np.asarray(sorted_t[4]),
-                                       np.asarray(cam.origin))
-        ref, seg_ref = wbn.render_linear_pallas_binned(
-            sph, *sorted_t, wf.camera_vec(cam), width=W, height=H,
-            samples_per_pixel=SPP, depth=D, interpret=True,
-            sph_clusters=sph_cl, ray_regroup_bounces=D - 1,
-            top_order=jnp.asarray(order), top_keys=jnp.asarray(keys))
+        sph, tri, scl, tcl = ops_mod.scene_tables(scene, False)
+        assert tcl is not None
+        ref, seg_ref = wf.render_linear_pallas(
+            sph, tri, wf.camera_vec(cam), width=W, height=H,
+            samples_per_pixel=2, depth=3, interpret=True,
+            parity_plane_sign=False, sph_clusters=scl, tri_clusters=tcl)
         out, seg = parallel.render_linear_sharded_fast(
-            scene, cam, mesh=mesh8, width=W, height=H,
-            samples_per_pixel=SPP, depth=D, engine="pallas_binned",
-            interpret=True)
-        assert np.array_equal(np.asarray(ref), np.asarray(out))
-        assert int(seg_ref) == int(seg)
-
-    def test_sharded_binned_odd_height(self, mesh8):
-        # tile rows that don't divide the device count: padding tiles are
-        # dead lanes, the visible rows still match bitwise
-        from raytracer_tpu import ops as ops_mod
-        from raytracer_tpu.ops.pallas import wavefront as wf
-        from raytracer_tpu.ops.pallas import wavefront_binned as wbn
-        from raytracer_tpu.ops.pallas.wavefront_stream import \
-            sorted_top_order
-        scene, cam = rt.models.mesh_scene(subdivisions=2)
-        W, H, SPP, D = 48, 37, 2, 2
-        (sph, sph_cl, *sorted_t) = ops_mod.scene_sorted_tables(scene)
-        order, keys = sorted_top_order(np.asarray(sorted_t[4]),
-                                       np.asarray(cam.origin))
-        ref, seg_ref = wbn.render_linear_pallas_binned(
-            sph, *sorted_t, wf.camera_vec(cam), width=W, height=H,
-            samples_per_pixel=SPP, depth=D, interpret=True,
-            sph_clusters=sph_cl, ray_regroup_bounces=D - 1,
-            top_order=jnp.asarray(order), top_keys=jnp.asarray(keys))
-        out, seg = parallel.render_linear_sharded_fast(
-            scene, cam, mesh=mesh8, width=W, height=H,
-            samples_per_pixel=SPP, depth=D, engine="pallas_binned",
-            interpret=True)
+            scene, cam, mesh=mesh8, width=W, height=H, samples_per_pixel=2,
+            depth=3, engine="pallas", interpret=True)
         assert np.array_equal(np.asarray(ref), np.asarray(out))
         assert int(seg_ref) == int(seg)
 
@@ -255,32 +222,30 @@ class TestShardedGradients:
 
 
 class TestShardedDiff:
-    """Sharded + differentiable + fast composition (VERDICT r2 item 4):
-    kernel forward/backward under shard_map must match single-device."""
+    """Sharded + differentiable + fast composition: kernel forward and
+    recompute backward under shard_map must match single-device."""
 
     W, H, SPP, D = 32, 24, 2, 3
 
-    def _statics(self, bwd):
-        return (self.W, self.H, self.SPP, self.D, 5, True, True, bwd)
-
-    @pytest.mark.parametrize("bwd", ["pallas", "xla"])
-    def test_grads_match_single_device(self, default_world, mesh8, bwd):
+    def test_grads_match_single_device(self, default_world, mesh8):
         from raytracer_tpu.ops import diff as diff_mod
         from raytracer_tpu.parallel.sharding import (
             render_linear_diff_sharded)
         scene = default_world.to_scene()
         cam = default_world.to_camera()
-        assert diff_mod.bwd_kernel_eligible(scene)
+        statics = diff_mod.make_statics(
+            width=self.W, height=self.H, samples_per_pixel=self.SPP,
+            depth=self.D, seed=5, parity_plane_sign=True, interpret=True)
 
         def loss_single(s):
-            img = diff_mod.render_linear_diff(s, cam, self._statics(bwd))
+            img = diff_mod.render_linear_diff(s, cam, statics)
             return jnp.sum(img * img)
 
         def loss_sharded(s):
             img = render_linear_diff_sharded(
                 s, cam, mesh=mesh8, width=self.W, height=self.H,
                 samples_per_pixel=self.SPP, depth=self.D, seed=5,
-                interpret=True, bwd_engine=bwd)
+                interpret=True)
             return jnp.sum(img * img)
 
         v1, g1 = jax.value_and_grad(loss_single, allow_int=True)(scene)
